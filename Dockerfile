@@ -1,6 +1,7 @@
 # Prover-service image (reference analog: keyless-zk-proofs/Dockerfile).
-# The TPU runtime is provided by the deployment platform; this image holds
-# the service, the native witness engine toolchain, and a procured setup.
+# Runs on an NVIDIA GPU: the host provides the driver (run with --gpus);
+# this image holds the service, JAX's CUDA build, the native witness
+# engine toolchain, and a procured setup.
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends \
@@ -12,9 +13,7 @@ COPY pyproject.toml README.md ./
 COPY keyless_zk_tpu ./keyless_zk_tpu
 COPY native ./native
 
-# jax is expected from the base platform image in TPU deployments;
-# install the CPU wheel for local runs.
-RUN pip install --no-cache-dir "jax[cpu]" pyyaml cryptography && \
+RUN pip install --no-cache-dir "jax[cuda12]" pyyaml && \
     pip install --no-cache-dir -e . --no-deps
 
 # Procure the content-addressed setup at build time (testing setups only;

@@ -12,7 +12,7 @@ replaces that entire toolchain natively:
                      so reference-compiled artifacts remain loadable;
 - :mod:`setup`     — Groth16 setup producing proving keys for our prover
                      and snarkjs-shape verification keys (the fixed-base
-                     scalar multiplications run as batched TPU kernels);
+                     scalar multiplications run as batched device kernels);
 - :mod:`gadgets`   — the gadget library mirroring the reference's template
                      tree (circuit/templates/helpers/*).
 """

@@ -15,8 +15,9 @@ Outputs plug straight into our prover:
   :func:`keyless_zk_tpu.groth16.pairing.verify_groth16`.
 
 The heavy part of setup is ~5*nVars + domain fixed-base scalar
-multiplications; they run as one batched double-and-add TPU kernel per
-group (254 vector steps), not nVars sequential host muls.
+multiplications; they run as batched windowed fixed-base kernels on the
+device (32 vector steps over a precomputed window table), not nVars
+sequential host muls.
 
 Representation bookkeeping (verified bit-exact against toy_1.zkey):
 zkey coefficient records store c*R^2 — snarkjs holds matrix entries in
@@ -34,15 +35,20 @@ contract snarkjs's hExps satisfy for rapidsnark (groth16.cpp:264-286).
 
 from __future__ import annotations
 
+import functools
+import itertools
 import secrets
 from dataclasses import dataclass
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from ..curves import ref_curve
 from ..fields import bn254
 from ..fields.limbs import ints_to_limbs
 from ..groth16.zkey import G1Table, G2Table, ProvingKey
+from ..utils.logging import Span
 
 P = bn254.R_SCALAR
 R256 = 1 << 256
@@ -62,69 +68,89 @@ def _batch_inv(xs: list[int]) -> list[int]:
     return out
 
 
-def _fixed_base_points(
-    scalars: list[int], group: str, device_threshold: int = 512, chunk: int = 1 << 15
-):
-    """[k_i * G] for the G1/G2 generator; batched on device beyond a threshold.
+# fixed-base window width: each point is the sum of ceil(254/8) = 32
+# table entries d * 2^(8j) * G, one batched mixed add per window
+_FB_BITS = 8
+_FB_WINDOWS = -(-254 // _FB_BITS)
 
-    Work is cut into fixed-size chunks (padded to `chunk`) so one compiled
-    kernel shape serves any table size and per-launch device memory stays
-    bounded.
-    """
-    gen = ref_curve.G1_GEN if group == "g1" else ref_curve.G2_GEN
-    ops = ref_curve.G1 if group == "g1" else ref_curve.G2
-    if len(scalars) <= device_threshold:
-        return [ops.mul(gen, k) for k in scalars]
 
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
+@functools.lru_cache(maxsize=2)
+def _window_table(group: str):
+    """Host table T[j][d] = d * 2^(8j) * G (None for d == 0), as the
+    device's Montgomery limb arrays (x, y, inf) of shape (windows, 2^8, ...)."""
     from ..curves.jacobian import G1_CURVE, G2_CURVE
-    from ..fields.limbs import LIMB_BITS
-    from ..ops.msm import _accelerated
 
-    # on TPU the batched dbl/madd chain routes through the fused Pallas
-    # group-law kernels (ops/pallas_curve.py) — the table build is ~500
-    # batched group ops over millions of points at full scale
-    curve = _accelerated(G1_CURVE if group == "g1" else G2_CURVE)
-    bx0, by0, _ = curve.encode_affine([gen])
+    ops = ref_curve.G1 if group == "g1" else ref_curve.G2
+    base = ref_curve.G1_GEN if group == "g1" else ref_curve.G2_GEN
+    rows = []
+    for _ in range(_FB_WINDOWS):
+        row = [None]
+        for _ in range(1, 1 << _FB_BITS):
+            row.append(ops.add(row[-1], base))
+        rows.append(row)
+        base = ops.add(row[-1], base)  # 2^8 * base
+    curve = G1_CURVE if group == "g1" else G2_CURVE
+    x, y, inf = curve.encode_affine([p for row in rows for p in row])
+    shape = (_FB_WINDOWS, 1 << _FB_BITS)
+    return (
+        x.reshape(*shape, *x.shape[1:]),
+        y.reshape(*shape, *y.shape[1:]),
+        inf.reshape(shape),
+    )
 
-    @functools.partial(jax.jit, static_argnames="curve")
-    def kernel(limbs, bx1, by1, *, curve):
-        n = limbs.shape[0]
-        bx = jnp.broadcast_to(bx1[0], (n, *bx1.shape[1:]))
-        by = jnp.broadcast_to(by1[0], (n, *by1.shape[1:]))
-        binf = jnp.zeros((n,), bool)
-        nbits = 254
-        bit_idx = jnp.arange(nbits - 1, -1, -1)
-        limb, off = bit_idx // LIMB_BITS, bit_idx % LIMB_BITS
-        bits = (limbs[:, limb] >> off) & 1  # (n, 254) MSB-first
 
-        def body(i, acc):
-            acc = curve.dbl(acc)
-            added = curve.add_mixed(acc, bx, by, binf)
-            return curve.select(bits[:, i] == 1, added, acc)
+@functools.partial(jax.jit, static_argnames="curve")
+def _fixed_base_chunk(limbs, tx, ty, tinf, *, curve):
+    """(n, 16) standard-form scalars -> affine (x, y, inf) of k*G: 32
+    windowed mixed adds from the window table, then one batched inversion.
+    Infinity rows come out as all-zero coordinates."""
+    n = limbs.shape[0]
+    mask = jnp.uint32((1 << _FB_BITS) - 1)
 
-        acc = jax.lax.fori_loop(0, nbits, body, curve.infinity((n,)))
-        return curve.to_affine(acc)
-
-    out = []
-    total = len(scalars)
-    for start in range(0, total, chunk):
-        part = scalars[start : start + chunk]
-        pad = chunk - len(part) if total > chunk else 0
-        limbs = jnp.asarray(ints_to_limbs([k % P for k in part] + [0] * pad))
-        x, y, inf = kernel(limbs, bx0, by0, curve=curve)
-        xs = curve.ops.decode(x)
-        ys = curve.ops.decode(y)
-        infs = list(jax.device_get(inf))
-        out.extend(
-            None if i else (xx, yy)
-            for xx, yy, i in list(zip(xs, ys, infs))[: len(part)]
+    def body(j, acc):
+        bit = j * _FB_BITS
+        d = ((jnp.take(limbs, bit // 16, axis=1) >> (bit % 16)) & mask).astype(jnp.int32)
+        return curve.add_mixed(
+            acc, jnp.take(tx[j], d, axis=0), jnp.take(ty[j], d, axis=0), tinf[j][d]
         )
-    return out
+
+    acc = jax.lax.fori_loop(0, _FB_WINDOWS, body, curve.infinity((n,)))
+    x, y, inf = curve.to_affine(acc)
+    zero = curve.ops.zeros((n,))
+    return curve.ops.select(inf, zero, x), curve.ops.select(inf, zero, y), inf
+
+
+def _fixed_base_table(
+    scalars: list[int], group: str, device_threshold: int = 512, chunk: int = 1 << 16
+):
+    """[k_i * G] for the G1/G2 generator as a G1Table/G2Table of Montgomery
+    limbs; on the device beyond a threshold, else host ints.
+
+    Work is cut into fixed-size chunks (padded to `chunk`, or to the whole
+    list when it is shorter) so one compiled shape serves any table size
+    and device memory stays bounded.
+    """
+    from ..curves.jacobian import G1_CURVE, G2_CURVE
+
+    if len(scalars) <= device_threshold:
+        ops = ref_curve.G1 if group == "g1" else ref_curve.G2
+        gen = ref_curve.G1_GEN if group == "g1" else ref_curve.G2_GEN
+        pts = [ops.mul(gen, k) for k in scalars]
+        return _g1_table(pts) if group == "g1" else _g2_table(pts)
+    curve = G1_CURVE if group == "g1" else G2_CURVE
+    tx, ty, tinf = _window_table(group)
+    total = len(scalars)
+    size = min(chunk, total)
+    xs, ys, infs = [], [], []
+    for start in range(0, total, size):
+        part = scalars[start : start + size]
+        limbs = ints_to_limbs([k % P for k in part] + [0] * (size - len(part)))
+        x, y, inf = _fixed_base_chunk(jnp.asarray(limbs), tx, ty, tinf, curve=curve)
+        xs.append(np.asarray(x)[: len(part)])
+        ys.append(np.asarray(y)[: len(part)])
+        infs.append(np.asarray(inf)[: len(part)])
+    table = G1Table if group == "g1" else G2Table
+    return table(x=np.concatenate(xs), y=np.concatenate(ys), inf=np.concatenate(infs))
 
 
 @dataclass
@@ -178,63 +204,67 @@ def groth16_setup(
     omega = bn254.fr_root_of_unity(domain_pow)
     eta = bn254.fr_root_of_unity(domain_pow + 1)  # eta^2 == omega, eta^n == -1
 
-    # ---- Lagrange values L_q(tau) over the omega domain -------------------
-    w_pows = [1] * n
-    for q in range(1, n):
-        w_pows[q] = w_pows[q - 1] * omega % P
-    z_tau = (pow(tau, n, P) - 1) % P
-    if z_tau == 0:
-        raise ValueError("tau landed in the evaluation domain; resample")
-    denom_inv = _batch_inv([n * (tau - wq) % P for wq in w_pows])
-    lag = [z_tau * wq % P * dq % P for wq, dq in zip(w_pows, denom_inv)]
+    with Span("SetupQAP"):
+        # ---- Lagrange values L_q(tau) over the omega domain -------------------
+        w_pows = [1] * n
+        for q in range(1, n):
+            w_pows[q] = w_pows[q - 1] * omega % P
+        z_tau = (pow(tau, n, P) - 1) % P
+        if z_tau == 0:
+            raise ValueError("tau landed in the evaluation domain; resample")
+        denom_inv = _batch_inv([n * (tau - wq) % P for wq in w_pows])
+        lag = [z_tau * wq % P * dq % P for wq, dq in zip(w_pows, denom_inv)]
 
-    # ---- u_i(tau), v_i(tau), w_i(tau) --------------------------------------
-    u = [0] * n_vars
-    v = [0] * n_vars
-    w = [0] * n_vars
-    for q, row in enumerate(r1cs.A):
-        for i, coef in row.items():
-            u[i] = (u[i] + coef * lag[q]) % P
-    for q, row in enumerate(r1cs.B):
-        for i, coef in row.items():
-            v[i] = (v[i] + coef * lag[q]) % P
-    for q, row in enumerate(r1cs.C):
-        for i, coef in row.items():
-            w[i] = (w[i] + coef * lag[q]) % P
-    for s in range(npub + 1):  # binding rows: A[m0+s][s] = 1
-        u[s] = (u[s] + lag[m0 + s]) % P
+        # ---- u_i(tau), v_i(tau), w_i(tau) --------------------------------------
+        # binding rows: A[m0+s][s] = 1
+        rows_a = list(r1cs.A) + [{s: 1} for s in range(npub + 1)]
 
-    gamma_inv = pow(gamma, -1, P)
-    delta_inv = pow(delta, -1, P)
+        def qap(rows) -> list[int]:
+            acc = [0] * n_vars
+            for lq, row in zip(lag, rows):
+                for i, coef in row.items():
+                    acc[i] += coef * lq  # reduced once at the end
+            return [x % P for x in acc]
 
-    ic_scalars = [
-        (beta * u[i] + alpha * v[i] + w[i]) % P * gamma_inv % P for i in range(npub + 1)
-    ]
-    c_scalars = [
-        (beta * u[i] + alpha * v[i] + w[i]) % P * delta_inv % P
-        for i in range(npub + 1, n_vars)
-    ]
+        u, v, w = qap(rows_a), qap(r1cs.B), qap(r1cs.C)
 
-    # ---- H basis over the eta-coset ----------------------------------------
-    # L_k(tau/eta) reuses the Lagrange machinery at the shifted point.
-    t2 = tau * pow(eta, -1, P) % P
-    z2 = (pow(t2, n, P) - 1) % P
-    if z2 == 0:
-        raise ValueError("tau/eta landed in the evaluation domain; resample")
-    d2_inv = _batch_inv([n * (t2 - wq) % P for wq in w_pows])
-    coset_vanish = (pow(eta, n, P) - 1) % P  # == -2
-    h_common = z_tau * delta_inv % P * pow(coset_vanish, -1, P) % P
-    h_scalars = [z2 * wq % P * dq % P * h_common % P for wq, dq in zip(w_pows, d2_inv)]
+        g1, g2 = ref_curve.G1, ref_curve.G2
+        gamma_inv = pow(gamma, -1, P)
+        delta_inv = pow(delta, -1, P)
+
+        ic_scalars = [
+            (beta * u[i] + alpha * v[i] + w[i]) % P * gamma_inv % P for i in range(npub + 1)
+        ]
+        c_scalars = [
+            (beta * u[i] + alpha * v[i] + w[i]) % P * delta_inv % P
+            for i in range(npub + 1, n_vars)
+        ]
+
+        # ---- H basis over the eta-coset ----------------------------------------
+        # L_k(tau/eta) reuses the Lagrange machinery at the shifted point.
+        t2 = tau * pow(eta, -1, P) % P
+        z2 = (pow(t2, n, P) - 1) % P
+        if z2 == 0:
+            raise ValueError("tau/eta landed in the evaluation domain; resample")
+        d2_inv = _batch_inv([n * (t2 - wq) % P for wq in w_pows])
+        coset_vanish = (pow(eta, n, P) - 1) % P  # == -2
+        h_common = z_tau * delta_inv % P * pow(coset_vanish, -1, P) % P
+        h_scalars = [z2 * wq % P * dq % P * h_common % P for wq, dq in zip(w_pows, d2_inv)]
 
     # ---- point tables (batched fixed-base kernels) --------------------------
-    pts_a = _fixed_base_points(u, "g1", device_threshold)
-    pts_b1 = _fixed_base_points(v, "g1", device_threshold)
-    pts_b2 = _fixed_base_points(v, "g2", device_threshold)
-    pts_c = _fixed_base_points(c_scalars, "g1", device_threshold)
-    pts_h = _fixed_base_points(h_scalars, "g1", device_threshold)
-    pts_ic = _fixed_base_points(ic_scalars, "g1", device_threshold)
+    with Span("SetupPointTables"):
+        tables = {
+            name: _fixed_base_table(sc, group, device_threshold)
+            for name, sc, group in (
+                ("points_a", u, "g1"),
+                ("points_b1", v, "g1"),
+                ("points_b2", v, "g2"),
+                ("points_c", c_scalars, "g1"),
+                ("points_h", h_scalars, "g1"),
+            )
+        }
+    pts_ic = [g1.mul(ref_curve.G1_GEN, k) for k in ic_scalars]
 
-    g1, g2 = ref_curve.G1, ref_curve.G2
     vk_alpha1 = g1.mul(ref_curve.G1_GEN, alpha)
     vk_beta1 = g1.mul(ref_curve.G1_GEN, beta)
     vk_beta2 = g2.mul(ref_curve.G2_GEN, beta)
@@ -242,16 +272,19 @@ def groth16_setup(
     vk_delta1 = g1.mul(ref_curve.G1_GEN, delta)
     vk_delta2 = g2.mul(ref_curve.G2_GEN, delta)
 
-    # ---- coefficient table (zkey section 4 semantics) -----------------------
-    ms, cs_, ss, vals = [], [], [], []
-    for q, row in enumerate(r1cs.A):
-        for i, coef in row.items():
-            ms.append(0), cs_.append(q), ss.append(i), vals.append(coef)
-    for s in range(npub + 1):
-        ms.append(0), cs_.append(m0 + s), ss.append(s), vals.append(1)
-    for q, row in enumerate(r1cs.B):
-        for i, coef in row.items():
-            ms.append(1), cs_.append(q), ss.append(i), vals.append(coef)
+    with Span("SetupCoefTable"):
+        # ---- coefficient table (zkey section 4 semantics) -----------------------
+        def flat(rows):
+            """(destination rows, wires, coefficients) of a row-major matrix."""
+            lens = np.fromiter((len(r) for r in rows), np.int64, len(rows))
+            dest = np.repeat(np.arange(len(rows), dtype=np.uint32), lens)
+            wires = np.fromiter(
+                itertools.chain.from_iterable(r.keys() for r in rows), np.uint32, int(lens.sum())
+            )
+            return dest, wires, list(itertools.chain.from_iterable(r.values() for r in rows))
+
+        (ca, sa, va), (cb, sb, vb) = flat(rows_a), flat(r1cs.B)
+        coef_val = _coef_limbs(va + vb)
 
     pk = ProvingKey(
         n8q=32,
@@ -261,22 +294,18 @@ def groth16_setup(
         n_vars=n_vars,
         n_public=npub,
         domain_size=n,
-        n_coefs=len(ms),
+        n_coefs=len(va) + len(vb),
         vk_alpha1=vk_alpha1,
         vk_beta1=vk_beta1,
         vk_beta2=vk_beta2,
         vk_gamma2=vk_gamma2,
         vk_delta1=vk_delta1,
         vk_delta2=vk_delta2,
-        coef_m=np.asarray(ms, dtype=np.uint32),
-        coef_c=np.asarray(cs_, dtype=np.uint32),
-        coef_s=np.asarray(ss, dtype=np.uint32),
-        coef_val=ints_to_limbs([c * R256 % P * R256 % P for c in vals]),
-        points_a=_g1_table(pts_a),
-        points_b1=_g1_table(pts_b1),
-        points_b2=_g2_table(pts_b2),
-        points_c=_g1_table(pts_c),
-        points_h=_g1_table(pts_h),
+        coef_m=np.repeat(np.arange(2, dtype=np.uint32), [len(va), len(vb)]),
+        coef_c=np.concatenate([ca, cb]),
+        coef_s=np.concatenate([sa, sb]),
+        coef_val=coef_val,
+        **tables,
     )
 
     vk = {
@@ -294,6 +323,16 @@ def groth16_setup(
         vk=vk,
         toxic={"tau": tau, "alpha": alpha, "beta": beta, "gamma": gamma, "delta": delta},
     )
+
+
+def _coef_limbs(vals: list[int]) -> np.ndarray:
+    """Coefficients -> (n, 16) limbs of c*R^2 mod r. Circuits repeat a few
+    coefficient values millions of times, so each distinct value converts
+    once and the rows are gathered."""
+    ids: dict[int, int] = {}
+    idx = np.fromiter((ids.setdefault(c, len(ids)) for c in vals), np.int64, len(vals))
+    table = ints_to_limbs([c * R256 % P * R256 % P for c in ids])
+    return table[idx] if len(vals) else table.reshape(0, 16)
 
 
 def _mont_q(x: int) -> int:

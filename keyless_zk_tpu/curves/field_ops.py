@@ -6,6 +6,9 @@ F2Field<RawFq> (alt_bn128.hpp:9-69); here the same role is played by two
 always in Montgomery form.
 
 Shapes: Fq coordinate (..., 16); Fq2 coordinate (..., 2, 16).
+
+``mul_many`` multiplies several independent operand pairs as ONE stacked
+Montgomery multiply (see JacobianCurve._lockstep).
 """
 
 from __future__ import annotations
@@ -33,6 +36,15 @@ class FqOps:
 
     def mul(self, a, b):
         return jf.mont_mul(a, b, FQ)
+
+    def mul_many(self, pairs):
+        """[a_k * b_k] for equal-shaped operands, as one stacked multiply."""
+        if len(pairs) == 1:
+            return [self.mul(*pairs[0])]
+        out = jf.mont_mul(
+            jnp.stack([a for a, _ in pairs]), jnp.stack([b for _, b in pairs]), FQ
+        )
+        return list(out)
 
     def sqr(self, a):
         return jf.mont_mul(a, a, FQ)
@@ -79,14 +91,23 @@ class Fq2Ops:
         return jf.sub(a, b, FQ)
 
     def mul(self, a, b):
-        a0, a1 = a[..., 0, :], a[..., 1, :]
-        b0, b1 = b[..., 0, :], b[..., 1, :]
-        t0 = jf.mont_mul(a0, b0, FQ)
-        t1 = jf.mont_mul(a1, b1, FQ)
-        t2 = jf.mont_mul(jf.add(a0, a1, FQ), jf.add(b0, b1, FQ), FQ)
+        return self.mul_many([(a, b)])[0]
+
+    def mul_many(self, pairs):
+        """[a_k * b_k] for equal-shaped operands: Karatsuba's three Fq
+        products of every pair, (a0 b0, a1 b1, (a0+a1)(b0+b1)), run as one
+        stacked Fq multiply."""
+        a = jnp.stack([x for x, _ in pairs])
+        b = jnp.stack([y for _, y in pairs])
+
+        def karatsuba_operands(v):
+            v0, v1 = v[..., 0, :], v[..., 1, :]
+            return jnp.stack([v0, v1, jf.add(v0, v1, FQ)])
+
+        t0, t1, t2 = jf.mont_mul(karatsuba_operands(a), karatsuba_operands(b), FQ)
         re = jf.sub(t0, t1, FQ)
         im = jf.sub(jf.sub(t2, t0, FQ), t1, FQ)
-        return jnp.stack([re, im], axis=-2)
+        return list(jnp.stack([re, im], axis=-2))
 
     def sqr(self, a):
         a0, a1 = a[..., 0, :], a[..., 1, :]

@@ -2,7 +2,7 @@
 
 Plays the role the generic C++ field/curve fallback plays in the reference
 (rust-rapidsnark fr_generic.cpp, curve.cpp): an exact, slow, obviously-correct
-model used (a) as ground truth in differential tests of the TPU kernels,
+model used (a) as ground truth in differential tests of the device kernels,
 (b) for the tiny final-tail computations where batching buys nothing, and
 (c) by the pairing-based verifier.
 

@@ -1,14 +1,14 @@
-"""Batched prime-field arithmetic in JAX for TPU.
+"""Batched prime-field arithmetic in plain JAX.
 
 Replaces the reference's x86-64 asm field layer (rust-rapidsnark
 src/asm/fr.asm, fq.asm and the generic C++ fallbacks fr_generic.cpp /
-fq_generic.cpp) with a TPU-native design:
+fq_generic.cpp) with a batched, data-parallel design:
 
 - an element is 16 little-endian limbs of 16 bits held in uint32 lanes
   (see fields/limbs.py for why);
 - every op is *batched*: inputs have shape (..., 16) and all arithmetic is
-  elementwise across the leading batch dims, so the VPU processes full
-  vectors per instruction and XLA fuses the whole limb schedule;
+  elementwise across the leading batch dims, so XLA fuses the whole limb
+  schedule into wide vector code;
 - multiplication is **parallel Montgomery**: one full limb convolution
   T = a*b, then m = T * (-p^-1 mod R) mod R as a second convolution, then
   (T + m*p)/R as a third — no sequential limb recurrence anywhere, unlike
@@ -172,10 +172,11 @@ def _product_cols(a: jnp.ndarray, b: jnp.ndarray, out_cols: int) -> jnp.ndarray:
     two one-hot contractions — 3 fat XLA ops instead of a ~100-op
     pad/concat chain, which keeps XLA:CPU compile times sane.
 
-    The contractions run in f32 so the TPU routes them onto the MXU (u32
-    dot_general falls back to scalar VPU loops, ~30x slower). This is
-    exact: every accumulated value is an integer < 2^21, far inside f32's
-    2^24 exact-integer range; HIGHEST precision forbids bf16 splitting.
+    The contractions run as f32 dot_generals, which XLA hands to its GEMM
+    libraries. This is exact: every accumulated value is an integer
+    < 2^21, far inside f32's 2^24 exact-integer range. HIGHEST precision is
+    what keeps it exact: it forbids reduced-precision (bf16 or TF32) input
+    rounding, which would drop low bits of values above 2^11.
     """
     o = a[..., :, None] * b[..., None, :]  # (..., L, L) u32, exact
     t0, t1 = _conv_onehots(a.shape[-1], b.shape[-1], out_cols)
@@ -271,41 +272,15 @@ def _redc(t: jnp.ndarray, spec: FieldSpec) -> jnp.ndarray:
     return _csub_p(limbs, spec)
 
 
-def _mont_mul_xla(a: jnp.ndarray, b: jnp.ndarray, spec: FieldSpec) -> jnp.ndarray:
-    t = _normalize(_product_cols(a, b, 2 * NUM_LIMBS + 1), 2 * NUM_LIMBS)
-    return _redc(t, spec)
-
-
 @functools.partial(jax.jit, static_argnames="spec")
 def mont_mul(a: jnp.ndarray, b: jnp.ndarray, spec: FieldSpec) -> jnp.ndarray:
     """Montgomery product a*b*R^-1 mod p, canonical in/out.
 
     Parallel (redundant-arithmetic) Montgomery: one full limb convolution
     T = a*b, then the REDC tail — no sequential limb recurrence anywhere.
-
-    On real TPUs, large batches route through the Pallas limb-major kernel
-    (ops/pallas_field.py) — the XLA lowering of the one-hot contractions
-    runs ~50x slower than the VMEM-resident kernel schedule (round-3 bench:
-    0.021 vs ~1 Gops/s). The XLA form remains the portable fallback and the
-    differential-test oracle.
-
-    Dispatch is decided at TRACE time from the import-time NO_PALLAS flag
-    (utils/flags.py: KEYLESS_NO_PALLAS must be set before the first trace)
-    and the process default backend; the choice is frozen into jit caches.
     """
-    import numpy as np
-
-    from ..utils.flags import NO_PALLAS
-
-    n = int(np.prod(jnp.broadcast_shapes(a.shape, b.shape)[:-1] or (1,)))
-    if n >= (1 << 12) and jax.default_backend() == "tpu" and not NO_PALLAS:
-        from ..ops.pallas_field import mont_mul_pallas
-
-        shape = jnp.broadcast_shapes(a.shape, b.shape)
-        return mont_mul_pallas(
-            jnp.broadcast_to(a, shape), jnp.broadcast_to(b, shape), spec
-        )
-    return _mont_mul_xla(a, b, spec)
+    t = _normalize(_product_cols(a, b, 2 * NUM_LIMBS + 1), 2 * NUM_LIMBS)
+    return _redc(t, spec)
 
 
 @functools.partial(jax.jit, static_argnames=("spec", "num_segments"))
@@ -317,7 +292,7 @@ def segment_sum_mod(
 ) -> jnp.ndarray:
     """Race-free modular scatter-add: out[k] = sum_{segment_ids[i]==k} values[i].
 
-    TPU-native replacement for the reference's spinlock-guarded coefficient
+    Replacement for the reference's spinlock-guarded coefficient
     scatter (groth16.cpp:135-156): limbs are split into 8-bit halves and
     accumulated with plain integer segment sums (exact for < 2^23 terms per
     segment), then each wide row is folded back to canonical form with one
@@ -345,13 +320,10 @@ def sorted_segment_sum_mod(
     mod p (scaled by R^-1, same convention as segment_sum_mod).
 
     Replaces jax.ops.segment_sum for the static-boundary cases (zkey
-    coefficient rows, dedup merge groups): XLA lowers segment_sum to a
-    scatter-add, which runs ~serially on TPU — the round-5 probe measured
-    270 ms per 1.4M-row merge and ~10 s across the coefficient pipeline.
-    Cumsum + ONE boundary gather + shifted difference is dense work (row
-    gathers dominate this pipeline — probe_eval_ab measured cumsum at
-    36 ms vs ~310 ms for two 2^22-row takes, hence the shared-boundary
-    form). Exactness: 8-bit column splits keep every cumulative sum
+    coefficient rows, dedup merge groups) with dense work and no
+    scatter-add: cumsum + ONE boundary gather + shifted difference (the
+    adjacent segments share their boundaries, so one gather serves both
+    ends). Exactness: 8-bit column splits keep every cumulative sum
     < 2^32 for < 2^24 rows, and each out[k] difference is a < 2^23-term
     segment total (< 2^31).
     """

@@ -1,10 +1,10 @@
-"""Limb encoding for 254-bit field elements on TPU.
+"""Limb encoding for 254-bit field elements.
 
 Design: a field element is a little-endian vector of 16 limbs of 16 bits,
-stored in ``uint32`` lanes.  This is the TPU-native replacement for the
-reference's 4x64-bit representation (rust-rapidsnark fr.hpp/fq.hpp): the VPU
-has no 64-bit integer datapath, but 16-bit limb products fit *exactly* in a
-uint32 multiply, so schoolbook/Montgomery products decompose into exact
+stored in ``uint32`` lanes.  This replaces the reference's 4x64-bit
+representation (rust-rapidsnark fr.hpp/fq.hpp): accelerator vector units
+have no fast 64-bit integer multiply, but 16-bit limb products fit *exactly*
+in a uint32 multiply, so schoolbook/Montgomery products decompose into exact
 lo/hi-split column sums with huge (2^31 / 2^22) overflow headroom.
 
 All conversion helpers here are host-side (numpy); device code lives in
@@ -42,11 +42,12 @@ def limbs_to_int(limbs: np.ndarray) -> int:
 
 def ints_to_limbs(xs, num_limbs: int = NUM_LIMBS) -> np.ndarray:
     """Vector encode: list of ints -> (n, num_limbs) uint32."""
-    xs = list(xs)
-    out = np.empty((len(xs), num_limbs), dtype=np.uint32)
-    for i, x in enumerate(xs):
-        out[i] = int_to_limbs(x, num_limbs)
-    return out
+    width = num_limbs * LIMB_BITS // 8
+    try:
+        buf = b"".join(int(x).to_bytes(width, "little") for x in xs)
+    except OverflowError as e:
+        raise ValueError(f"value out of range for {num_limbs} limbs") from e
+    return bytes_le_to_limbs(buf, width)
 
 
 def limbs_to_ints(arr: np.ndarray) -> list[int]:

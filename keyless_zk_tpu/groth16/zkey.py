@@ -175,12 +175,14 @@ def save_zkey(path: str, pk: ProvingKey) -> None:
     s2 += g1_point(pk.vk_alpha1) + g1_point(pk.vk_beta1) + g2_point(pk.vk_beta2)
     s2 += g2_point(pk.vk_gamma2) + g1_point(pk.vk_delta1) + g2_point(pk.vk_delta2)
 
-    coef_blob = limbs_to_bytes_le(pk.coef_val)
-    s4 = bytearray(struct.pack("<I", pk.n_coefs))
-    for i, (m, c, s) in enumerate(zip(pk.coef_m, pk.coef_c, pk.coef_s)):
-        s4 += struct.pack("<III", int(m), int(c), int(s))
-        s4 += coef_blob[32 * i : 32 * (i + 1)]
-    s4 = bytes(s4)
+    n = pk.n_coefs
+    rec = np.empty((n, 12 + 32), np.uint8)
+    rec[:, :12] = (
+        np.stack([pk.coef_m, pk.coef_c, pk.coef_s], axis=1)
+        .astype("<u4").view(np.uint8).reshape(n, 12)
+    )
+    rec[:, 12:] = np.frombuffer(limbs_to_bytes_le(pk.coef_val), np.uint8).reshape(n, 32)
+    s4 = struct.pack("<I", n) + rec.tobytes()
 
     with open(path, "wb") as f:
         f.write(b"zkey")

@@ -1,85 +1,52 @@
-"""Multi-scalar multiplication (Pippenger) for TPU.
+"""Multi-scalar multiplication (Pippenger) in plain JAX.
 
 Replaces the reference's TBB bucket MSM (rust-rapidsnark/rapidsnark/src/
 multiexp.cpp:182-245: per-thread bucket privatization + tree merge) with a
-design built for a SIMD machine with no atomics. Round-2 pipeline (the
-fused TPU path; `_msm_pippenger` is the portable XLA formulation used for
-CPU tests):
+flat-stream design that XLA compiles as whole-array work, with no atomics
+and no data-dependent control flow:
 
 1. **signed digits**: scalars are split into ceil(254/c) c-bit windows and
    rebalanced to digits in [-(2^(c-1)-1), 2^(c-1)] with carry propagation —
    half the buckets of the reference's unsigned windows (multiexp.hpp:4-6),
-   paid for by a mask-negated y at gather time (negation is an Fq subtract).
-2. **one batched sort**: all windows' (digit, index|neg) pairs sort in a
-   single `lax.sort` call over a (W, n) batch.
-3. **fused chunk scan** (pallas_msm.window_scan): V lanes consume the
-   sorted stream in L slabs; each slab performs one V-wide complete mixed
-   add. Work: exactly n mixed adds per window — the Pippenger optimum.
-4. **scatter-free dense bucket tables**: the scan streams its pre-add
-   accumulator states to an emit buffer; each bucket's interior-run total
-   sits at a position computable from the *sorted keys alone* (the slab
-   after its run ends), so the dense table is built with binary-searched
-   gathers — the round-1 million-entry 3-coordinate scatter is gone.
-   Runs crossing lane boundaries resolve in a per-window 2V-entry
-   segmented-scan merge (pallas_msm.boundary_merge) and are gathered the
-   same way.
-5. **weighted bucket reduction** (pallas_msm.bucket accum+combine):
-   sum_b b·B_b with O(NB) sequential EC adds per window — the vector form
-   of the reference's running-sum reduction (multiexp.cpp:132-180).
-6. **horner over windows**: one kernel computes sum_w 2^(c·w)·W_w.
+   paid for by a mask-negated y at gather time.
+2. **one sort per window row, then compaction**: every (window, element)
+   pair gets the flat bucket id window*NB + digit; zero digits take a
+   sentinel that sorts to the row's tail, and one gather concatenates the
+   rows' nonzero prefixes into a stream of `cap` entries (cap = next power
+   of two >= the nonzero-digit count). Real keyless witnesses are ~94%
+   bit-valued wires whose digits vanish in every window but the lowest, so
+   compaction cuts the stream ~13x on the witness MSMs.
+3. **lane scan**: V lanes walk the stream in L = chunk/V steps, each step
+   one V-wide mixed add. The pre-add accumulator of every step is kept, so
+   the total of a bucket run inside one lane is gathered by a position
+   computed from the sorted keys alone — no bucket scatter.
+4. **boundary merge**: runs crossing lane or chunk boundaries resolve in
+   one segmented suffix sum over the lanes' head/tail partials.
+5. **weighted bucket reduction**: sum_b b*B_b for all windows at once (the
+   suffix-scan form of the reference's running sum, multiexp.cpp:132-180).
+6. **horner over windows**: sum_w 2^(c*w) * W_w.
 
 Digit-0 entries map to the point at infinity, so padding and zero scalars
 need no special casing anywhere. G2 runs the same pipeline with Fq2
-coordinate rows (alt_bn128.hpp:9-69's second Curve instantiation).
+coordinates (alt_bn128.hpp:9-69's second Curve instantiation).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 
 from ..curves.jacobian import JacobianCurve, JacPoint
-from .pallas_ec import sel as _sel
 from ..fields.limbs import LIMB_BITS, NUM_LIMBS
 
 SCALAR_BITS = 254
 
-# bump when fused-kernel semantics change (invalidates AOT export cache)
-AOT_VERSION = 4
-
-_PALLAS_CURVES = {}
-
-
-def _fused_tag(curve):
-    """Field tag for the fused Pallas path, or None to use the XLA path."""
-    from ..curves.jacobian import G1_CURVE, G2_CURVE
-    from ..utils.flags import NO_PALLAS
-
-    if jax.default_backend() != "tpu" or NO_PALLAS:
-        return None
-    if curve is G1_CURVE:
-        return "fq"
-    if curve is G2_CURVE:
-        return "fq2"
-    return None
-
-
-def _accelerated(curve):
-    """On real TPUs, route batched group ops through fused Pallas kernels
-    (G1 and G2); used by setup table building and probe tooling."""
-    tag = _fused_tag(curve)
-    if tag is None:
-        return curve
-    if tag not in _PALLAS_CURVES:
-        from .pallas_curve import PallasG1Curve, PallasG2Curve
-
-        _PALLAS_CURVES[tag] = (
-            PallasG1Curve(curve) if tag == "fq" else PallasG2Curve(curve)
-        )
-    return _PALLAS_CURVES[tag]
+# sequential lane-scan steps per stream chunk: the chunk's entries are
+# spread over chunk // _SCAN_STEPS lanes, so each step is one wide batched
+# mixed add
+_SCAN_STEPS = 64
 
 
 def extract_digits(scalars: jnp.ndarray, c: int) -> jnp.ndarray:
@@ -116,7 +83,7 @@ def extract_digits_signed(scalars: jnp.ndarray, c: int):
         dw = d[w] + carry
         neg = dw > half
         carry = neg.astype(jnp.int32)
-        keys.append(_sel(neg, full - dw, dw))
+        keys.append(jnp.where(neg, full - dw, dw))
         negs.append(neg.astype(jnp.int32))
     return jnp.stack(keys), jnp.stack(negs)
 
@@ -131,11 +98,10 @@ def _searchsorted(keys: jnp.ndarray, vals: jnp.ndarray) -> jnp.ndarray:
         lo, hi = lohi
         done = lo >= hi
         mid = jnp.minimum((lo + hi) >> 1, m - 1)
-        kv = keys[mid]
-        go = kv < vals
-        lo2 = _sel(go, mid + 1, lo)
-        hi2 = _sel(go, hi, mid)
-        return (_sel(done, lo, lo2), _sel(done, hi, hi2))
+        go = keys[mid] < vals
+        lo2 = jnp.where(go, mid + 1, lo)
+        hi2 = jnp.where(go, hi, mid)
+        return (jnp.where(done, lo, lo2), jnp.where(done, hi, hi2))
 
     lo = jnp.zeros_like(vals)
     hi = jnp.full_like(vals, m)
@@ -143,38 +109,23 @@ def _searchsorted(keys: jnp.ndarray, vals: jnp.ndarray) -> jnp.ndarray:
     return lo
 
 
-def _segmented_suffix_totals(keys: jnp.ndarray, pts: JacPoint, curve: JacobianCurve):
-    """Inclusive segmented suffix sums over a key-sorted point sequence.
-
-    After the scan, the first (leader) position of every equal-key segment
-    holds the segment total. Returns (totals, leader_mask).
-    """
-    m = keys.shape[0]
-    steps = max(m - 1, 1).bit_length()
-    idx = jnp.arange(m)
-
-    def body(s, acc):
-        sh = jnp.left_shift(1, s)
-        shifted = jax.tree.map(lambda a: jnp.roll(a, -sh, axis=0), acc)
-        same = jnp.roll(keys, -sh) == keys
-        valid = same & (idx < m - sh)
-        return curve.select(valid, curve.add(acc, JacPoint(*shifted)), acc)
-
-    acc = jax.lax.fori_loop(0, steps, body, pts)
-    leader = jnp.concatenate([jnp.ones((1,), bool), keys[1:] != keys[:-1]])
-    return acc, leader
-
-
-def suffix_sum_points(curve: JacobianCurve, pts: JacPoint) -> JacPoint:
-    """Inclusive suffix sums: out[i] = sum_{j >= i} pts[j]."""
+def suffix_sum_points(curve: JacobianCurve, pts: JacPoint, keys=None, steps=None) -> JacPoint:
+    """Inclusive suffix sums over the leading axis: out[i] = sum_{j >= i}
+    pts[j], restricted to the run of equal `keys` when keys are given (then
+    each run's first position holds the run total). `steps` (possibly a
+    traced scalar) caps the Hillis-Steele passes; a run of length S needs
+    ceil(log2(S))."""
     m = pts.x.shape[0]
-    steps = max(m - 1, 1).bit_length()
+    full = max(m - 1, 1).bit_length()
+    steps = full if steps is None else jnp.minimum(steps, full)
     idx = jnp.arange(m)
 
     def body(s, acc):
         sh = jnp.left_shift(1, s)
         shifted = jax.tree.map(lambda a: jnp.roll(a, -sh, axis=0), acc)
         valid = idx < m - sh
+        if keys is not None:
+            valid = valid & (jnp.roll(keys, -sh) == keys)
         return curve.select(valid, curve.add(acc, JacPoint(*shifted)), acc)
 
     return jax.lax.fori_loop(0, steps, body, pts)
@@ -209,24 +160,46 @@ def tree_reduce_points(curve: JacobianCurve, acc: JacPoint, m: int) -> JacPoint:
     return JacPoint(*jax.tree.map(lambda a: a[0], total))
 
 
-def msm_window_bits(n: int) -> int:
-    """Window size for the XLA path (log-scan reduction costs c·2^c adds)."""
+def _p2(x: int) -> int:
+    return 1 << max(x - 1, 0).bit_length()
+
+
+def window_bits(n: int) -> int:
+    """Window size for dense (uniform) scalars: the lane scan costs one
+    mixed add per stream entry, and the stream of ceil(254/c)*n entries
+    pads to a power of two; the weighted reduction's log-step suffix scans
+    cost ~3*c*2^(c-1) adds per window."""
 
     def cost(c: int) -> int:
-        return -(-SCALAR_BITS // c) * (n + c * (1 << c))
+        wn = -(-SCALAR_BITS // c)
+        return _p2(wn * n) + wn * 3 * c * (1 << (c - 1))
 
     return min(range(4, 17), key=cost)
 
 
-def fused_window_bits(n: int) -> int:
-    """Window size for the fused path: scan costs n mixed adds per window,
-    the sequential reduction ~2.6·2^(c-1) add-equivalents, plus a ~3000-add
-    fixed per-window overhead (sort/gather/merge/dispatch)."""
+def _chunk_entries(curve: JacobianCurve) -> int:
+    """Stream entries scanned per pass. Each entry keeps one 3-coordinate
+    pre-add state: 2^23 G1 (or 2^22 G2) entries is ~1.6 GB transient."""
+    return 1 << 23 if curve.ops.coord_ndim == 1 else 1 << 22
 
-    def cost(c: int) -> float:
-        return -(-SCALAR_BITS // c) * (n + 2.6 * (1 << (c - 1)) + 3000.0)
 
-    return min(range(8, 17), key=cost)
+def _stream_shape(curve: JacobianCurve, scalars: jnp.ndarray, c: int) -> tuple:
+    """(cap, chunk, lanes) of the flat stream for (B, n, 16) scalars, n a
+    power of two.
+
+    cap is the next power of two >= the nonzero-digit count, counted on the
+    host, but at least 2n: every sparse stream over n rows (the witness
+    MSMs hold ~2 nonzero digits per row) then gets the same cap, and with
+    it the same compiled graph, across tables and requests. Under a trace
+    (e.g. inside shard_map) the count is unknown and the stream is dense."""
+    total = scalars.shape[0] * -(-SCALAR_BITS // c) * scalars.shape[1]
+    if isinstance(scalars, jax.core.Tracer):
+        cap = _p2(total)
+    else:
+        nnz = int(_count_nonzero_digits(scalars, c=c))
+        cap = min(max(_p2(nnz), 2 * _p2(scalars.shape[1])), _p2(total))
+    chunk = min(cap, _chunk_entries(curve))
+    return cap, chunk, max(1, chunk // _SCAN_STEPS)
 
 
 def msm(
@@ -237,68 +210,51 @@ def msm(
     *,
     curve: JacobianCurve,
     c: int | None = None,
-    lanes: int = 1 << 12,
     small_threshold: int = 128,
-    scan_v: int | None = None,
-    assume_distinct: bool = True,
 ) -> JacPoint:
     """sum_i scalars[i] * P_i.  Points affine (Montgomery), scalars standard.
 
-    Returns a single Jacobian point (batch shape ()). `assume_distinct`
-    skips the P==Q doubling fallback in the fused scan (see
-    pallas_ec.madd_core for the safety argument); pass False for tables
-    that may contain duplicate points.
-
-    On TPU the fused path first counts nonzero digits and compacts the
-    flat digit stream to the next power of two >= that count (see
-    _msm_pippenger_fused): real keyless witnesses are ~94% bit-valued
-    wires, whose digits vanish in every window but the lowest — 92.8%
-    of all digit slots measured zero — so compaction cuts the scan work
-    ~13x on the witness MSMs. Each distinct (n, cap) pair is its own
-    compiled/AOT-cached graph; caps are powers of two so the ladder
-    stays tiny and stable across requests.
+    Returns a single Jacobian point (batch shape ()). Tables may hold
+    duplicate points and infinities: the group law is complete. `scalars`
+    may be shorter than the table (missing rows count as zero).
     """
-    n = scalars.shape[0]
-    if n <= small_threshold:
+    if points_x.shape[0] <= small_threshold:
+        scalars = _pad_to(scalars, points_x.shape[0], 0, 0)
         return _msm_small(points_x, points_y, points_inf, scalars, curve=curve)
-    tag = _fused_tag(curve)
-    if tag is not None:
-        import functools as _ft
-
-        from ..utils.aot_cache import aot_call
-
-        cw = c or fused_window_bits(n)
-        Wn = -(-SCALAR_BITS // cw)
-        V = scan_v or _default_scan_v(tag)
-        total = Wn * n
-
-        def p2(x: int) -> int:
-            return 1 << max(x - 1, 0).bit_length()
-
-        nnz_fn = jax.jit(_ft.partial(_count_nonzero_digits.__wrapped__, c=cw))
-        nnz = int(
-            aot_call(f"msm_nnz_c{cw}", AOT_VERSION, nnz_fn, scalars)
-        )
-        cap = min(max(V, p2(nnz)), p2(total))
-        chunk = min(cap, _flat_chunk_entries(tag))
-        V = _clamp_scan_v(V, cap // chunk)
-        fn = jax.jit(
-            _ft.partial(
-                _msm_pippenger_fused.__wrapped__,
-                tag=tag, c=cw, v=V, cap=cap, chunk=chunk,
-                assume_distinct=assume_distinct,
-            )
-        )
-        return aot_call(
-            f"msm_flat_{tag}_c{cw}_v{V}_p{cap}_k{chunk}_d{int(assume_distinct)}",
-            AOT_VERSION,
-            fn,
-            points_x, points_y, points_inf, scalars,
-        )
-    return _msm_pippenger(
-        points_x, points_y, points_inf, scalars,
-        curve=curve, c=c or msm_window_bits(n), lanes=lanes,
+    points_x, points_y, points_inf, scalars = _pad_rows(
+        points_x, points_y, points_inf, scalars[None]
     )
+    c = c or window_bits(scalars.shape[1])
+    cap, chunk, v = _stream_shape(curve, scalars, c)
+    return _msm_flat(
+        points_x, points_y, points_inf, scalars[0],
+        curve=curve, c=c, v=v, cap=cap, chunk=chunk,
+    )
+
+
+def _pad_to(a: jnp.ndarray, rows: int, axis: int, fill) -> jnp.ndarray:
+    if a.shape[axis] == rows:
+        return a
+    width = [(0, 0)] * a.ndim
+    width[axis] = (0, rows - a.shape[axis])
+    return jnp.pad(a, width, constant_values=fill)
+
+
+def pad_table(points_x, points_y, points_inf, rows: int) -> tuple:
+    """A point table padded with infinity rows to `rows` rows."""
+    return (
+        _pad_to(points_x, rows, 0, 0),
+        _pad_to(points_y, rows, 0, 0),
+        _pad_to(points_inf, rows, 0, True),
+    )
+
+
+def _pad_rows(points_x, points_y, points_inf, scalars):
+    """Pad the table to a power-of-two row count with infinity rows, and
+    the (B, n, 16) scalars with zero rows to match, so MSMs over tables of
+    similar size share one compiled graph."""
+    rows = _p2(points_x.shape[0])
+    return (*pad_table(points_x, points_y, points_inf, rows), _pad_to(scalars, rows, 1, 0))
 
 
 def msm_batch(
@@ -309,187 +265,139 @@ def msm_batch(
     *,
     curve: JacobianCurve,
     c: int | None = None,
-    lanes: int = 1 << 12,
-    scan_v: int | None = None,
-    assume_distinct: bool = True,
 ) -> JacPoint:
     """B MSMs over ONE point table: scalars (B, n, 16) -> JacPoint stacked
     on a leading batch axis.
 
-    On TPU this is a single flat-stream Pippenger whose bucket ids carry a
-    batch offset (see _msm_pippenger_fused's `batch`), i.e. one sort + one
-    scan for the whole batch — NOT B serialized MSMs and NOT vmap (the
-    fused path's nnz compaction needs a host-side count, which vmap cannot
-    trace through). The BatchProver's device sweep lands here.
+    One flat stream whose bucket ids carry a batch offset, i.e. one sort
+    and one scan for the whole batch — not B serialized MSMs and not vmap
+    (compaction needs the host-side nonzero count, which vmap cannot trace
+    through). The BatchProver's device sweep lands here.
     """
-    B, n = scalars.shape[0], scalars.shape[1]
-    tag = _fused_tag(curve)
-    if tag is None or n <= 128 or B == 1:  # B==1 reuses the single-MSM graphs
+    B = scalars.shape[0]
+    if points_x.shape[0] <= 128 or B == 1:  # B == 1 reuses the single-MSM graphs
         singles = [
-            msm(points_x, points_y, points_inf, scalars[b], curve=curve,
-                c=c, lanes=lanes, assume_distinct=assume_distinct)
+            msm(points_x, points_y, points_inf, scalars[b], curve=curve, c=c)
             for b in range(B)
         ]
         return JacPoint(*(jnp.stack(coord) for coord in zip(*singles)))
-
-    import functools as _ft
-
-    from ..utils.aot_cache import aot_call
-
-    cw = c or fused_window_bits(n)
-    Wn = -(-SCALAR_BITS // cw)
-    V = scan_v or _default_scan_v(tag)
-    total = B * Wn * n
-
-    def p2(x: int) -> int:
-        return 1 << max(x - 1, 0).bit_length()
-
-    nnz_fn = jax.jit(_ft.partial(_count_nonzero_digits_batch.__wrapped__, c=cw))
-    nnz = int(aot_call(f"msm_nnzb_c{cw}", AOT_VERSION, nnz_fn, scalars))
-    cap = min(max(V, p2(nnz)), p2(total))
-    chunk = min(cap, _flat_chunk_entries(tag))
-    V = _clamp_scan_v(V, cap // chunk)
-    fn = jax.jit(
-        _ft.partial(
-            _msm_pippenger_fused.__wrapped__,
-            tag=tag, c=cw, v=V, cap=cap, chunk=chunk,
-            assume_distinct=assume_distinct, batch=B,
-        )
+    points_x, points_y, points_inf, scalars = _pad_rows(
+        points_x, points_y, points_inf, scalars
     )
-    return aot_call(
-        f"msm_flatb{B}_{tag}_c{cw}_v{V}_p{cap}_k{chunk}_d{int(assume_distinct)}",
-        AOT_VERSION,
-        fn,
+    c = c or window_bits(scalars.shape[1])
+    cap, chunk, v = _stream_shape(curve, scalars, c)
+    return _msm_flat(
         points_x, points_y, points_inf, scalars,
+        curve=curve, c=c, v=v, cap=cap, chunk=chunk, batch=B,
     )
-
-
-@functools.partial(jax.jit, static_argnames="c")
-def _count_nonzero_digits_batch(scalars: jnp.ndarray, *, c: int) -> jnp.ndarray:
-    """Total nonzero signed digits across a (B, n, 16) scalar batch."""
-    keys, _ = jax.vmap(lambda s: extract_digits_signed(s, c))(scalars)
-    return jnp.sum((keys >= 1).astype(jnp.int32))
-
-
-def _clamp_scan_v(v: int, n_chunks: int) -> int:
-    """Cap lanes so the GLOBAL boundary sequence (2 * V * n_chunks) stays
-    within the merge kernel's VMEM: m2 = 131072 at V=16k x 4 chunks blew
-    the 128M scoped budget with 185M of register-allocator spill slots
-    (m2 = 65536 compiles and runs). Lower bound 4096 keeps the scan wide
-    enough to matter."""
-    return max(4096, min(v, (1 << 15) // max(n_chunks, 1)))
-
-
-def _default_scan_v(tag: str) -> int:
-    """Scan-kernel lane count (KEYLESS_MSM_V / KEYLESS_MSM_V_FQ2 override).
-
-    More lanes = fewer serialized slab steps per stream chunk; the cap is
-    VMEM (the scan holds ~14 point-sized rows of R*V u32 — a G2 fold at
-    104k lanes OOM'd the 100 MB scoped budget in round 4)."""
-    env = os.environ.get(
-        "KEYLESS_MSM_V_FQ2" if tag == "fq2" else "KEYLESS_MSM_V", "0"
-    )
-    return int(env) or (16384 if tag == "fq" else 4096)
-
-
-def _flat_chunk_entries(tag: str) -> int:
-    """Stream entries scanned per device pass. Each entry holds a gathered
-    affine point (2 coords) plus a 3-coordinate emit slot: 20*R bytes —
-    2^23 G1 entries = 2.7 GB transient, well under HBM with the sort
-    buffers and bucket tables resident."""
-    cap = int(os.environ.get("KEYLESS_MSM_CHUNK_ENTRIES", "0"))
-    if cap:
-        return cap
-    return (1 << 23) if tag == "fq" else (1 << 22)
 
 
 @functools.partial(jax.jit, static_argnames="c")
 def _count_nonzero_digits(scalars: jnp.ndarray, *, c: int) -> jnp.ndarray:
-    """Number of nonzero signed digits across all windows (the compacted
-    stream length before padding)."""
-    keys, _ = extract_digits_signed(scalars, c)
+    """Total nonzero signed digits across a (B, n, 16) scalar batch (the
+    compacted stream length before padding)."""
+    keys, _ = jax.vmap(lambda s: extract_digits_signed(s, c))(scalars)
     return jnp.sum((keys >= 1).astype(jnp.int32))
 
 
+def _lane_scan(curve: JacobianCurve, keys, idx, neg, px, py, pinf):
+    """V lanes walk a slab-major (L, V) stream of bucket keys and point
+    indices (rows of px/py/pinf), one mixed add per step.
+
+    Returns (emits, head_key, head_pt, tail_key, tail_pt): emits[t] is the
+    accumulator after slab t (for t < L-1), i.e. the total of a run that
+    ends in slab t; head is the lane's first run (key -2: none closed),
+    tail its still-open last run (key -1: the lane holds one run, which is
+    then the head).
+    """
+    V = keys.shape[1]
+    inf0 = curve.infinity((V,))
+
+    def load(k, i, ng):
+        x, y, q_inf = px[i], py[i], pinf[i]
+        return k, x, curve.ops.select(ng, curve.ops.neg(y), y), q_inf
+
+    k0, x0, y0, inf_0 = load(keys[0], idx[0], neg[0])
+    state0 = (k0, curve.from_affine(x0, y0, inf_0), jnp.ones((V,), bool),
+              jnp.full((V,), -2, jnp.int32), inf0)
+
+    def step(state, slab):
+        cur_key, acc, is_head, head_key, head_pt = state
+        k, x, y, q_inf = load(*slab)
+        same = k == cur_key
+        to_head = ~same & is_head
+        head_key = jnp.where(to_head, cur_key, head_key)
+        head_pt = curve.select(to_head, acc, head_pt)
+        is_head = is_head & same
+        grown = curve.add_mixed(acc, x, y, q_inf)
+        fresh = curve.from_affine(x, y, q_inf)
+        return (k, curve.select(same, grown, fresh), is_head, head_key, head_pt), acc
+
+    (k_last, acc, is_head, head_key, head_pt), emits = jax.lax.scan(
+        step, state0, (keys[1:], idx[1:], neg[1:])
+    )
+    tail_key = jnp.where(is_head, -1, k_last)
+    tail_pt = curve.select(is_head, inf0, acc)
+    head_key = jnp.where(is_head, k_last, head_key)
+    head_pt = curve.select(is_head, acc, head_pt)
+    return emits, head_key, head_pt, tail_key, tail_pt
+
+
 @functools.partial(
-    jax.jit,
-    static_argnames=("tag", "c", "v", "cap", "chunk", "assume_distinct", "batch"),
+    jax.jit, static_argnames=("curve", "c", "v", "cap", "chunk", "batch")
 )
-def _msm_pippenger_fused(
+def _msm_flat(
     points_x: jnp.ndarray,
     points_y: jnp.ndarray,
     points_inf: jnp.ndarray,
     scalars: jnp.ndarray,
     *,
-    tag: str,
+    curve: JacobianCurve,
     c: int,
     v: int,
     cap: int,
     chunk: int,
-    assume_distinct: bool,
     batch: int | None = None,
 ) -> JacPoint:
-    """Pippenger with every per-element stage fused into Pallas kernels.
+    """Flat-stream Pippenger (module docstring, steps 2-6).
 
-    Round-5 FLAT-STREAM structure (replaces the round-4 per-window lane
-    folding): every (window, element) pair maps to one flat bucket id
-    fb = window*NB_pad + digit; zero digits and pads map to a sentinel
-    that sorts PAST the real entries, so ONE bitonic pair sort both
-    groups the buckets and compacts the stream to its first `cap` slots.
-    The scan then runs over the compacted stream in `chunk`-entry pieces
-    (jax.lax.scan carries the dense bucket table), each piece a single
-    window_scan launch with V lanes; chunk boundaries behave exactly like
-    lane boundaries and resolve in the one global boundary merge.
-
-    Work: nnz mixed adds total (vs n*Wn before compaction — a ~13x cut on
-    real keyless witnesses, BENCH notes), plus sum_b b*B_b reduction per
-    window. Cf. multiexp.cpp:182-245 (the TBB bucket design replaced).
+    Every (batch, window, element) triple maps to one flat bucket id
+    fb = (b*Wn + w)*NB + digit. The stream of `cap` entries runs in
+    `chunk`-entry pieces (lax.scan carries the dense bucket table), each a
+    lane scan with `v` lanes; chunk boundaries behave exactly like lane
+    boundaries and resolve in the one global boundary merge.
 
     `batch=B` proves B scalar vectors (B, n, 16) against the SAME point
-    table in one flat stream — the bucket id simply gains a batch offset
-    (b*Wn + w)*NB_pad + digit, so the sort/scan/merge machinery is reused
-    verbatim and returns B totals (the BatchProver's device sweep; the
-    reference's mutex serializes here, prover_state.rs:21).
+    table in one stream (the BatchProver's device sweep; the reference's
+    mutex serializes here, prover_state.rs:21).
     """
-    from . import pallas_msm
-    from .pallas_ec import field_for
-
-    R = field_for(tag).rows
     n = scalars.shape[-2]
     B = batch or 1
     V = v
     assert chunk % V == 0 and cap % chunk == 0, (cap, chunk, V)
     L = chunk // V
     n_chunks = cap // chunk
-    Wd = V // 8
 
     # (B, Wn, n) digit planes; the unbatched call is B == 1
     keys, negs = jax.vmap(lambda s: extract_digits_signed(s, c))(
         scalars.reshape(B, n, scalars.shape[-1])
     )
     Wn = keys.shape[1]
-    half = 1 << (c - 1)
-    NB = half + 1
-    NB_pad = -(-NB // pallas_msm.RV) * pallas_msm.RV
-    n_seg = B * Wn * NB_pad
+    NB = (1 << (c - 1)) + 1
+    rows = B * Wn
+    n_seg = rows * NB
     assert n_seg + 1 < (1 << 31)
 
-    # Sort PER (batch, window) ROW, then compact: a row-sorted (B*Wn, n)
-    # array concatenated in row order IS the flat stream sorted by flat
-    # bucket id (b*Wn + w)*NB_pad + digit — no global sort needed. Rows
-    # sort with ONE lax.sort op (compile-light: an in-graph bitonic
-    # network unrolled at 2^21 entries produced a 114 MB StableHLO whose
-    # TPU compile was OOM-killed). Zero digits and pads take a sentinel
-    # key that sorts to each row's tail; the compaction gather below then
-    # concatenates the rows' real-entry prefixes into the first `nnz`
-    # slots of a cap-length stream.
+    # Sort PER (batch, window) ROW, then compact: a row-sorted (rows, n)
+    # array concatenated in row order IS the flat stream sorted by bucket
+    # id — no global sort needed. Zero digits and pads take the sentinel
+    # key NB, which sorts to each row's tail.
     real = keys >= 1
-    rows = B * Wn
-    kr = _sel(real, keys, NB_pad).reshape(rows, n)
+    kr = jnp.where(real, keys, NB).reshape(rows, n)
     iota = jax.lax.iota(jnp.int32, n)[None, None, :]
-    pr = _sel(real, iota | (negs << 30), n).reshape(rows, n)
+    pr = jnp.where(real, iota | (negs << 30), n).reshape(rows, n)
     idx_bits = (n + 1).bit_length()
-    key_bits = (NB_pad + 1).bit_length()
+    key_bits = (NB + 1).bit_length()
     if key_bits + 1 + idx_bits <= 31:
         packed = (
             (kr << (idx_bits + 1))
@@ -506,8 +414,7 @@ def _msm_pippenger_fused(
             (kr, pr), num_keys=1, is_stable=False, dimension=1
         )
 
-    compacted = cap < rows * n
-    if compacted:
+    if cap < rows * n:
         # compaction: output slot p maps to row rw = searchsorted(offs, p)-1,
         # local offset p - offs[rw]; p past the total real count clips to
         # the sentinel (bucket n_seg / point-table infinity row)
@@ -516,59 +423,44 @@ def _msm_pippenger_fused(
             [jnp.zeros((1,), jnp.int32), jnp.cumsum(nnz_rows, dtype=jnp.int32)]
         )
         pos_c = jax.lax.iota(jnp.int32, cap)
-        # right-bisect(offs, p) == left-bisect(offs, p+1) over integer
-        # offsets (_searchsorted, not jnp.searchsorted — see its docstring)
-        rw = _searchsorted(offs, pos_c + 1) - 1
+        # right-bisect(offs, p) == left-bisect(offs, p+1) over integer offsets
+        rw = jnp.clip(_searchsorted(offs, pos_c + 1) - 1, 0, rows - 1)
         valid = pos_c < offs[rows]
-        src = jnp.where(valid, jnp.clip(rw, 0, rows - 1) * n + pos_c
-                        - jnp.take(offs, jnp.clip(rw, 0, rows - 1)), 0)
+        src = jnp.where(valid, rw * n + pos_c - jnp.take(offs, rw), 0)
         dig = jnp.take(kr_s.reshape(rows * n), src)
-        fb_s = jnp.where(valid, jnp.clip(rw, 0, rows - 1) * NB_pad + dig, n_seg)
+        fb_s = jnp.where(valid, rw * NB + dig, n_seg)
         pay_s = jnp.where(valid, jnp.take(pr_s.reshape(rows * n), src), n)
         row_base = offs[:-1]
     else:
-        # DENSE mode (caller saw nnz ~= rows*n, e.g. the H MSM's uniform
-        # scalars): the row-sorted planes ARE the stream — no compaction
-        # gathers at all. Row tails' sentinel digits (NB_pad) land in the
-        # next window's digit-0 pseudo-bucket (rw+1)*NB_pad, which carries
-        # weight 0 in the bucket reduction and gathers the infinity row,
-        # so they are arithmetic no-ops wherever they end up.
+        # dense stream (nnz ~= rows*n, e.g. the H MSM's uniform scalars):
+        # the row-sorted planes ARE the stream. Row tails' sentinel digits
+        # (NB) land in the next row's digit-0 bucket, which carries weight
+        # 0 and gathers the infinity row, so they are no-ops.
         warr = jax.lax.iota(jnp.int32, rows)[:, None]
-        fb_s = (warr * NB_pad + kr_s).reshape(rows * n)
+        fb_s = (warr * NB + kr_s).reshape(rows * n)
         pay_s = pr_s.reshape(rows * n)
         if cap > rows * n:
             fb_s = jnp.pad(fb_s, (0, cap - rows * n), constant_values=n_seg)
             pay_s = jnp.pad(pay_s, (0, cap - rows * n), constant_values=n)
         row_base = jax.lax.iota(jnp.int32, rows) * n
 
-    # master point table with a sentinel infinity row at index n; x||y
-    # packed point-major as u16 (limbs are 16-bit), so each stream entry
-    # is ONE 4R-byte row gather — the round-5 residual probe measured the
-    # two separate u32-row gathers at 507 ms of a 1518 ms 2^20 MSM.
-    pxy16 = jnp.concatenate(
-        [points_x.reshape(n, R), points_y.reshape(n, R)], axis=1
-    ).astype(jnp.uint16)
-    pxy16 = jnp.concatenate([pxy16, jnp.zeros((1, 2 * R), jnp.uint16)])
-    pinf_ext = jnp.concatenate([points_inf, jnp.ones((1,), bool)])
+    # point table with a sentinel infinity row at index n
+    def ext(a, fill):
+        return jnp.concatenate([a, jnp.full((1, *a.shape[1:]), fill, a.dtype)])
 
-    # global bucket geometry from the sorted keys alone. Element at flat
-    # position p lives in chunk p//chunk, lane (p//L) % V, slab p % L —
-    # p//L is a GLOBAL lane id (chunks stack in the lane direction), so
-    # interior/span tests are uniform across chunk boundaries.
-    #
-    # Bucket (rw, d) lives only in row rw's stream span, so starts/ends
-    # come from a per-row dense bisect over the SORTED digit row: counts
-    # of digits <= d give ends, shifted by one query give starts — rows *
-    # NB_pad * log(n) cached gathers, vs a cap-length segment_max scatter
-    # that measured ~600 ms at the H MSM's 2^25 stream. Dense-mode
-    # sentinel tails (bucket (rw+1)*NB_pad) intentionally read as EMPTY
-    # here: their runs resolve through the boundary merge into a weight-0
-    # bucket as infinity sums, so exact geometry for them is irrelevant.
-    q1 = jax.lax.iota(jnp.int32, NB_pad) + 1
-    cnt = jax.vmap(lambda row: _searchsorted(row, q1))(kr_s)  # <= d counts
-    cnt_prev = jnp.concatenate(
-        [jnp.zeros((rows, 1), jnp.int32), cnt[:, :-1]], axis=1
-    )
+    px, py, pinf = ext(points_x, 0), ext(points_y, 0), ext(points_inf, True)
+
+    # bucket geometry from the sorted keys alone. Element at flat position
+    # p lives in chunk p//chunk, lane (p//L) % V, slab p % L — p//L is a
+    # GLOBAL lane id (chunks stack in the lane direction), so interior/span
+    # tests are uniform across chunk boundaries. Bucket (rw, d) lives only
+    # in row rw's span: counts of digits <= d in the sorted row give its
+    # end, the count for d-1 its start. Dense-mode sentinel tails read as
+    # empty here; they resolve through the boundary merge into a weight-0
+    # bucket.
+    q1 = jax.lax.iota(jnp.int32, NB) + 1
+    cnt = jax.vmap(lambda row: _searchsorted(row, q1))(kr_s)
+    cnt_prev = jnp.concatenate([jnp.zeros((rows, 1), jnp.int32), cnt[:, :-1]], axis=1)
     starts = (row_base[:, None] + cnt_prev).reshape(n_seg)
     ends = (row_base[:, None] + cnt - 1).reshape(n_seg)
     interior = (
@@ -577,131 +469,92 @@ def _msm_pippenger_fused(
         & (starts % L != 0)
         & (ends % L != L - 1)
     )
-    # merge steps bound: a bucket spanning S lanes occupies <= 2S
-    # consecutive boundary slots (incl. cummax-filled tails), so
-    # ceil(log2(2*max_span)) suffix passes merge every real bucket
-    # (typically 2-3 vs the worst-case full log sweep).
+    # a bucket spanning S lanes occupies <= 2S consecutive boundary slots,
+    # so ceil(log2(2*max_span)) merge passes suffice
     lane_span = ends // L - starts // L + 1  # negative for empty buckets
     merge_steps = 32 - jax.lax.clz(2 * jnp.maximum(jnp.max(lane_span), 1) - 1)
 
-    kg = fb_s.reshape(n_chunks, chunk)
-    pg = pay_s.reshape(n_chunks, chunk)
-    cidx = jax.lax.iota(jnp.int32, n_chunks)
-
-    tbl0 = tuple(jnp.zeros((R, n_seg), jnp.uint32) for _ in range(3))
-
     def chunk_body(tbl, sl):
         kw, pw, ci = sl
-        idx = pw & ((1 << 30) - 1)
-        neg = (pw >> 30) & 1
 
         def smaj(x):  # (chunk,) -> (L, V) slab-major
             return x.reshape(V, L).T
 
-        ord_sm = smaj(idx)
-        keys_sm = smaj(kw)
-        neg_sm = smaj(neg)
-        flat_ord = ord_sm.reshape(chunk)
-        g = jnp.take(pxy16, flat_ord, axis=0).T.astype(jnp.uint32)  # (2R, chunk)
-        gx = g[:R].reshape(R, L, 8, Wd)
-        gy = g[R:].reshape(R, L, 8, Wd)
-        inf_sm = pinf_ext[ord_sm]
-        flags = inf_sm.astype(jnp.int32) | (neg_sm << 1)
-
-        (ex, ey, ez, hk, hx, hy, hz, tk, tx, ty, tz) = pallas_msm.window_scan(
-            tag,
-            keys_sm.reshape(L, 8, Wd),
-            flags.reshape(L, 8, Wd),
-            gx,
-            gy,
-            V=V,
-            assume_distinct=assume_distinct,
+        emits, hk, hp, tk, tp = _lane_scan(
+            curve, smaj(kw), smaj(pw & ((1 << 30) - 1)), smaj((pw >> 30) == 1),
+            px, py, pinf,
         )
-
         # interior-run totals for buckets ending in THIS chunk: the run
-        # [s, e] total is the pre-add accumulator of slab e%L + 1 in the
-        # run's lane, gathered straight from the emit buffer (never
-        # leaves the chunk iteration — the round-4 design materialized
-        # every chunk's emit at once, 6.4 GB at the H table).
+        # [s, e] total is the accumulator after slab e%L in lane e//L
         mine = interior & (ends // chunk == ci)
         e_loc = ends - ci * chunk
-        eidx = _sel(mine, (e_loc % L + 1) * V + e_loc // L, chunk)
-        new_tbl = []
-        for e, t in zip((ex, ey, ez), tbl):
-            src = jnp.concatenate(
-                [e.reshape(R, chunk), jnp.zeros((R, 1), jnp.uint32)], axis=1
-            )
-            new_tbl.append(_sel(mine, src[:, eidx], t))
-        outs = (
-            hk.reshape(V), tk.reshape(V),
-            hx.reshape(R, V), hy.reshape(R, V), hz.reshape(R, V),
-            tx.reshape(R, V), ty.reshape(R, V), tz.reshape(R, V),
-        )
-        return tuple(new_tbl), outs
+        eidx = jnp.where(mine, (e_loc % L) * V + e_loc // L, 0)
+        src = jax.tree.map(lambda a: ext(a.reshape(-1, *a.shape[2:]), 0)[eidx], emits)
+        return curve.select(mine, JacPoint(*src), tbl), (hk, hp, tk, tp)
 
-    (tbx, tby, tbz), (hks, tks, hxs, hys, hzs, txs, tys, tzs) = jax.lax.scan(
-        chunk_body, tbl0, (kg, pg, cidx)
+    (tbl, (hks, hps, tks, tps)) = jax.lax.scan(
+        chunk_body,
+        curve.infinity((n_seg,)),
+        (
+            fb_s.reshape(n_chunks, chunk),
+            pay_s.reshape(n_chunks, chunk),
+            jax.lax.iota(jnp.int32, n_chunks),
+        ),
     )
 
-    # one global boundary sequence: (head, tail) per global lane, in order
+    # one global boundary sequence: (head, tail) per global lane, in order;
+    # -2/-1 sentinels take the previous key (their points are infinity)
     m2 = 2 * V * n_chunks
-    bkeys = jnp.stack([hks, tks], axis=2).reshape(1, m2)
-    bkeys = jax.lax.cummax(bkeys, axis=1)  # fill -1/-2 sentinels
+    bkeys = jax.lax.cummax(jnp.stack([hks, tks], axis=2).reshape(m2))
+    bpts = JacPoint(*jax.tree.map(
+        lambda h, t: jnp.stack([h, t], axis=2).reshape(m2, *h.shape[2:]), hps, tps
+    ))
+    merged = suffix_sum_points(curve, bpts, keys=bkeys, steps=merge_steps)
 
-    def inter(h, t):  # (n_chunks, R, V) x2 -> (1, R, m2) interleaved
-        st = jnp.stack([h, t], axis=3)  # (nc, R, V, 2)
-        return st.transpose(1, 0, 2, 3).reshape(1, R, m2)
-
-    mx, my, mz = pallas_msm.boundary_merge(
-        tag, bkeys, inter(hxs, txs), inter(hys, tys), inter(hzs, tzs),
-        max_steps=merge_steps,
-    )  # (1, R, m2) x3
-
-    # overlay cross-lane bucket totals from the merged boundary leaders
-    pos2 = jax.lax.iota(jnp.int32, m2)
-    bclip = jnp.clip(bkeys[0], 0, n_seg)
+    # overlay cross-lane bucket totals from the merged run leaders
+    bclip = jnp.clip(bkeys, 0, n_seg)
     lpos = jax.ops.segment_min(
-        pos2, bclip, n_seg + 1, indices_are_sorted=True
+        jax.lax.iota(jnp.int32, m2), bclip, n_seg + 1, indices_are_sorted=True
     )[:n_seg]
     has = (lpos < m2) & ~interior
-    midx = _sel(has, jnp.minimum(lpos, m2 - 1), m2)
-    tbl = []
-    for mcoord, t in ((mx, tbx), (my, tby), (mz, tbz)):
-        src = jnp.concatenate(
-            [mcoord.reshape(R, m2), jnp.zeros((R, 1), jnp.uint32)], axis=1
-        )
-        tbl.append(_sel(has, src[:, midx], t))
+    midx = jnp.where(has, jnp.minimum(lpos, m2 - 1), 0)
+    tbl = curve.select(has, JacPoint(*(a[midx] for a in merged)), tbl)
 
-    # (R, B*Wn*NB_pad) -> (B*Wn, R, NB_pad) dense tables -> weighted
-    # reduction over all batch elements' windows at once, then one horner
-    # per batch element
-    dxs, dys, dzs = (
-        t.reshape(R, B * Wn, NB_pad).transpose(1, 0, 2) for t in tbl
-    )
-    wx, wy, wz = pallas_msm.weighted_bucket_total(tag, dxs, dys, dzs)
-    outs = []
-    for b in range(B):
-        sl = slice(b * Wn, (b + 1) * Wn)
-        tx_, ty_, tz_ = pallas_msm.horner_total(tag, wx[sl], wy[sl], wz[sl], c)
-        if tag == "fq2":
-            outs.append(JacPoint(
-                tx_.reshape(2, NUM_LIMBS),
-                ty_.reshape(2, NUM_LIMBS),
-                tz_.reshape(2, NUM_LIMBS),
-            ))
-        else:
-            outs.append(JacPoint(tx_, ty_, tz_))
+    # (rows*NB, ...) -> (rows, NB, ...) dense tables -> weighted reduction
+    # of all rows at once, then one horner per batch element
+    dense = JacPoint(*(a.reshape(rows, NB, *a.shape[1:]) for a in tbl))
+    wins = jax.vmap(lambda bk: _weighted_bucket_total(curve, bk, NB))(dense)
+    outs = [
+        _horner_windows(
+            curve, JacPoint(*(a[b * Wn : (b + 1) * Wn] for a in wins)), Wn, c
+        )
+        for b in range(B)
+    ]
     if batch is None:
         return outs[0]
     return JacPoint(*(jnp.stack(c_) for c_ in zip(*outs)))
 
 
 def _weighted_bucket_total(curve: JacobianCurve, buckets: JacPoint, n_buckets: int) -> JacPoint:
-    """sum_{b>=1} b * B_b via the suffix-scan identity (multiexp.cpp:132-180)."""
-    bk = JacPoint(*jax.tree.map(lambda a: a[:n_buckets], buckets))
-    suf = suffix_sum_points(curve, bk)
-    seg = JacPoint(*jax.tree.map(lambda a: a[1:], suf))
-    return tree_reduce_points(curve, seg, n_buckets - 1)
+    """sum_{b>=1} b * B_b (the reference's running sum, multiexp.cpp:132-180)
+    as two log-depth suffix scans: S_b = sum_{j>=b} B_j, then the sum of
+    S_b over b >= 1. Both scans run as ONE loop, so the group law is traced
+    once."""
+    m = n_buckets
+    steps = max(m - 1, 1).bit_length()
+    idx = jnp.arange(m)
+    inf = curve.infinity((m,))
+
+    def body(s, acc):
+        # the second scan starts on S with bucket 0 dropped
+        acc = curve.select((idx == 0) & (s == steps), inf, acc)
+        sh = jnp.left_shift(1, s % steps)
+        shifted = jax.tree.map(lambda a: jnp.roll(a, -sh, axis=0), acc)
+        return curve.select(idx < m - sh, curve.add(acc, JacPoint(*shifted)), acc)
+
+    bk = JacPoint(*jax.tree.map(lambda a: a[:m], buckets))
+    out = jax.lax.fori_loop(0, 2 * steps, body, bk)
+    return JacPoint(*jax.tree.map(lambda a: a[0], out))
 
 
 def _horner_windows(curve: JacobianCurve, wins: JacPoint, n_windows: int, c: int) -> JacPoint:
@@ -720,114 +573,3 @@ def _horner_windows(curve: JacobianCurve, wins: JacPoint, n_windows: int, c: int
         return curve.add(acc, win(n_windows - 2 - t))
 
     return jax.lax.fori_loop(0, n_windows - 1, horner, win(n_windows - 1))
-
-
-@functools.partial(jax.jit, static_argnames=("curve", "c", "lanes"))
-def _msm_pippenger(
-    points_x: jnp.ndarray,
-    points_y: jnp.ndarray,
-    points_inf: jnp.ndarray,
-    scalars: jnp.ndarray,
-    *,
-    curve: JacobianCurve,
-    c: int,
-    lanes: int,
-) -> JacPoint:
-    """Portable XLA Pippenger (unsigned windows, in-graph bucket scatter).
-
-    The CPU-testable mirror of the fused path; every fused stage has a
-    stage-for-stage equivalent here (see _msm_pippenger_fused)."""
-    n = scalars.shape[0]
-    V = min(lanes, max(1, n))
-    L = -(-n // V)
-    pad = V * L - n
-
-    digits_all = extract_digits(scalars, c)  # (W, n)
-    n_windows = digits_all.shape[0]
-    n_buckets = 1 << c
-
-    def window_sum(digits):
-        order = jnp.argsort(digits)
-        keys = jnp.take(digits, order)
-        px = jnp.take(points_x, order, axis=0)
-        py = jnp.take(points_y, order, axis=0)
-        pinf = jnp.take(points_inf, order, axis=0) | (keys == 0)
-        if pad:
-            keys = jnp.concatenate([jnp.full((pad,), -1, keys.dtype), keys])
-            px = jnp.concatenate([jnp.zeros((pad, *px.shape[1:]), px.dtype), px])
-            py = jnp.concatenate([jnp.zeros((pad, *py.shape[1:]), py.dtype), py])
-            pinf = jnp.concatenate([jnp.ones((pad,), bool), pinf])
-        keys = keys.reshape(V, L)
-        px = px.reshape(V, L, *px.shape[1:])
-        py = py.reshape(V, L, *py.shape[1:])
-        pinf = pinf.reshape(V, L)
-
-        # bucket table with a dump slot at index n_buckets
-        buckets = curve.infinity((n_buckets + 1,))
-        DUMP = n_buckets
-
-        def seed(_):
-            acc0 = curve.from_affine(px[:, 0], py[:, 0], pinf[:, 0])
-            return (
-                keys[:, 0],  # cur_key
-                acc0,  # acc
-                jnp.ones((V,), bool),  # is_head
-                jnp.full((V,), -2, keys.dtype),  # head_key (-2: none yet)
-                curve.infinity((V,)),  # head_point
-                buckets,
-            )
-
-        def step(t, state):
-            cur_key, acc, is_head, head_key, head_pt, bk = state
-            k = jax.lax.dynamic_index_in_dim(keys, t, axis=1, keepdims=False)
-            x = jax.lax.dynamic_index_in_dim(px, t, axis=1, keepdims=False)
-            y = jax.lax.dynamic_index_in_dim(py, t, axis=1, keepdims=False)
-            pi = jax.lax.dynamic_index_in_dim(pinf, t, axis=1, keepdims=False)
-            same = k == cur_key
-            emit = ~same
-            to_head = emit & is_head
-            head_key = _sel(to_head, cur_key, head_key)
-            head_pt = curve.select(to_head, acc, head_pt)
-            to_bucket = emit & ~is_head
-            idx = _sel(to_bucket, cur_key, DUMP)
-            bk = JacPoint(
-                bk.x.at[idx].set(acc.x),
-                bk.y.at[idx].set(acc.y),
-                bk.z.at[idx].set(acc.z),
-            )
-            is_head = is_head & same
-            fresh = curve.from_affine(x, y, pi)
-            grown = curve.add_mixed(acc, x, y, pi)
-            acc = curve.select(same, grown, fresh)
-            cur_key = k
-            return cur_key, acc, is_head, head_key, head_pt, bk
-
-        cur_key, acc, is_head, head_key, head_pt, buckets = jax.lax.fori_loop(
-            1, L, step, seed(None)
-        )
-
-        tail_key = _sel(is_head, -1, cur_key)
-        tail_pt = curve.select(is_head, curve.infinity((V,)), acc)
-        head_key = _sel(is_head, cur_key, head_key)
-        head_pt = curve.select(is_head, acc, head_pt)
-
-        bkeys = jnp.stack([head_key, tail_key], axis=1).reshape(2 * V)
-        bpts = jax.tree.map(
-            lambda h, t: jnp.stack([h, t], axis=1).reshape(2 * V, *h.shape[1:]),
-            head_pt,
-            tail_pt,
-        )
-        bpts = JacPoint(*bpts)
-        bkeys = jax.lax.cummax(bkeys)
-        totals, leader = _segmented_suffix_totals(bkeys, bpts, curve)
-        idx = _sel(leader & (bkeys > 0), bkeys, DUMP)
-        buckets = JacPoint(
-            buckets.x.at[idx].set(totals.x),
-            buckets.y.at[idx].set(totals.y),
-            buckets.z.at[idx].set(totals.z),
-        )
-
-        return _weighted_bucket_total(curve, buckets, n_buckets)
-
-    wins = jax.lax.map(window_sum, digits_all)
-    return _horner_windows(curve, wins, n_windows, c)

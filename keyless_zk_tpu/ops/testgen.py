@@ -4,8 +4,7 @@ Host generation of n random points costs n Python scalar muls (minutes at
 2^20); here the whole batch is one jitted double-and-add over the generator
 with per-element random scalars (254 steps of batched dbl + masked mixed
 add), then one batched inversion to affine. Points are distinct with
-overwhelming probability, as the fused MSM's `assume_distinct` fast path
-expects of zkey tables (ops/pallas_ec.madd_core).
+overwhelming probability.
 """
 
 from __future__ import annotations
@@ -43,9 +42,8 @@ def _points_from_scalars(gx, gy, scalars, *, curve: JacobianCurve, n_bits: int =
     return curve.to_affine(acc)
 
 
-# elements per device generation pass: the monolithic 2^20 double-and-add
-# graph crashed the (remote) TPU worker outright; chunking bounds peak
-# memory and reuses one compiled chunk shape.
+# elements per device generation pass: chunking bounds peak memory and
+# reuses one compiled chunk shape.
 _GEN_CHUNK = 1 << 16
 
 

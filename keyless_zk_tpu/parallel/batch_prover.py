@@ -2,7 +2,7 @@
 
 The reference serializes proving behind a global mutex — one proof at a
 time per process (prover-service/src/request_handler/prover_state.rs:21,
-prover_handler.rs:266-268).  This module is the TPU-native replacement:
+prover_handler.rs:266-268).  This module is the batched replacement:
 requests queue up and are proven as a *batch*, with every kernel of the
 Groth16 pipeline batched over the request dimension (vmapped MSMs and
 NTTs), and the batch dimension shardable across a device mesh for

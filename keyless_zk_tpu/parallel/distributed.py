@@ -1,24 +1,24 @@
 """Multi-host (multi-controller) runtime setup for the proving mesh.
 
 The reference is a single-node shared-memory system (SURVEY §2.4: no
-NCCL/MPI analog); the TPU-native scaling path is jax.distributed: one
-controller process per host, all chips of the slice joined into one global
-mesh, with ICI collectives inside `shard_map` (parallel/sharded.py) and
-request sharding across hosts for the batched prover (BASELINE configs[4]).
+NCCL/MPI analog); the scaling path here is jax.distributed: one
+controller process per host, all devices joined into one global mesh, with
+collectives inside `shard_map` (parallel/sharded.py) and request sharding
+across hosts for the batched prover (BASELINE configs[4]).
 
 Usage (one process per host):
 
     from keyless_zk_tpu.parallel import distributed
-    distributed.initialize()          # env-driven (TPU pod) or explicit
-    mesh = distributed.global_mesh()  # all chips across all hosts
+    distributed.initialize()          # env-driven or explicit
+    mesh = distributed.global_mesh()  # all devices across all hosts
 
     # data-parallel batched proving: each host feeds its local batch slice
     with mesh:
         ...
 
-On a TPU pod slice, `jax.distributed.initialize()` discovers peers from the
-TPU environment; elsewhere pass coordinator_address/num_processes/process_id
-(or set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).
+Pass coordinator_address/num_processes/process_id (or set
+JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID): nothing in
+the environment announces a cluster.
 
 Single-host fallback: initialize() is a no-op when no coordination is
 configured, so every code path works unchanged on one host (this is how the
@@ -48,16 +48,7 @@ def initialize(
     num_processes = num_processes or _env_int("JAX_NUM_PROCESSES")
     process_id = process_id if process_id is not None else _env_int("JAX_PROCESS_ID")
 
-    # Detect a TPU pod slice from the environment ONLY — touching the
-    # backend here (e.g. jax.default_backend()) would initialise XLA and
-    # make jax.distributed.initialize() below unusable ("must be called
-    # before any JAX calls").
-    on_tpu_pod = bool(
-        _env_int("TPU_WORKER_HOSTNAMES_COUNT")
-        or (os.environ.get("TPU_WORKER_HOSTNAMES", "").count(",") > 0)
-        or _env_int("MEGASCALE_NUM_SLICES")
-    )
-    if coordinator_address is None and not on_tpu_pod:
+    if coordinator_address is None:
         return False  # single-process mode
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

@@ -1,13 +1,13 @@
 """Sharded proving kernels over a jax.sharding.Mesh.
 
-TPU-native replacements for the reference's TBB parallelism (SURVEY §2.4):
+Replacements for the reference's TBB parallelism (SURVEY §2.4):
 
 - `sharded_msm`: points and scalars are partitioned across the mesh's
   `data` axis (the analog of multiexp.cpp's per-thread chunks); each chip
   runs the full local Pippenger, then the per-chip Jacobian partials are
   combined with one tiny all_gather + log-depth EC tree add. Communication
   is O(devices), independent of n — MSM scales linearly until the per-chip
-  slice stops saturating the VPU.
+  slice stops filling the device.
 - `sharded_ntt_batch`: a batch of polynomials laid out one-per-chip (the
   batched-prover configuration; intra-proof NTT sharding comes later via a
   four-step transpose decomposition).
@@ -122,7 +122,7 @@ def four_step_ntt(
 ) -> jnp.ndarray:
     """One 2^domain_pow NTT sharded across the mesh (four-step decomposition).
 
-    The TPU-native answer to SURVEY §2.4's "Comm" row for the FFT: where the
+    The answer to SURVEY §2.4's "Comm" row for the FFT: where the
     reference's fft.cpp parallelizes butterflies over threads in shared
     memory, a transform too big (or too batched) for one chip splits as
     n = n1*n2 with j = j1 + n1*j2, k = k2 + n2*k1:

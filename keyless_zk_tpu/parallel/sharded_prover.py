@@ -11,7 +11,7 @@ a `jax.sharding.Mesh`:
   each, parallel/sharded.four_step_ntt),
 - the coefficient scatter and pointwise field ops stay data-local.
 
-This is the TPU answer to BASELINE configs[4]'s N>=2 scaling row: a single
+This is the answer to BASELINE configs[4]'s N>=2 scaling row: a single
 proof's critical path spread over chips (intra-proof parallelism), with
 batch-level parallelism (batch_prover.py) composable on top. Exercised on
 the virtual CPU mesh by dryrun_multichip and tests/test_parallel.py.

@@ -7,6 +7,6 @@ the same request/response JSON (types.rs:24-57), training-wheels
 validation + Ed25519 signing (training_wheels.rs), JWK refresh loops
 (jwk_fetcher.rs), and Prometheus metrics on a dedicated port (metrics.rs).
 
-The proving backend is the TPU Groth16 engine + native witness generation
+The proving backend is the device Groth16 engine + native witness generation
 instead of an FFI'd rapidsnark + circom witness subprocesses.
 """

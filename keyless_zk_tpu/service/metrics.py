@@ -89,6 +89,11 @@ class Counter:
         with self._lock:
             self._values[key] += amount
 
+    def value(self, **labels) -> int:
+        key = tuple(labels.get(n, "") for n in self.label_names)
+        with self._lock:
+            return self._values.get(key, 0)
+
     def expose(self) -> str:
         lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} counter"]
         with self._lock:

@@ -2,7 +2,7 @@
 
 Mirror of prover-service/src/request_handler/prover_state.rs (state init)
 and prover_handler.rs (the prove pipeline with its 9 instrumented phases).
-Differences from the reference are deliberate TPU-first redesigns:
+Differences from the reference are deliberate redesigns:
 
 - witness generation is in-process (native ConstraintSystem hints), not a
   forked circom binary (prover_handler.rs:516-527);
@@ -55,6 +55,9 @@ class ProverServiceState:
     vk: dict | None = None
     prove_lock: threading.Lock = field(default_factory=threading.Lock)
     deployment_info: dict = field(default_factory=dict)
+    # wall seconds of each start-up step (circuit_build, setup_procurement,
+    # prover_load), filled by init_prover_from_native_setup
+    startup_seconds: dict = field(default_factory=dict)
 
     @classmethod
     def new_for_testing(
@@ -93,6 +96,14 @@ class ProverServiceState:
         from ..circuits.r1cs_file import r1cs_from_cs
         from ..circuits.setup import groth16_setup
 
+        t0 = time.monotonic()
+
+        def step(name):
+            nonlocal t0
+            now = time.monotonic()
+            self.startup_seconds[name] = now - t0
+            t0 = now
+
         if persist:
             import json
             import os
@@ -112,6 +123,7 @@ class ProverServiceState:
             if warm:
                 self.cs = None
                 self.witness_prog = CompiledWitnessProgram.load(prog_path)
+                step("circuit_build")
                 procure(self.keyless_config, root=root)  # refresh default slot
             else:
                 self.cs = build_keyless_circuit(self.keyless_config)
@@ -119,12 +131,14 @@ class ProverServiceState:
                     self.witness_prog = CompiledWitnessProgram(self.cs)
                 except Exception:
                     self.witness_prog = None  # no C toolchain: Python path
+                step("circuit_build")
                 setup_dir = procure(self.keyless_config, root=root, cs=self.cs)
                 if self.witness_prog is not None:
                     try:
                         self.witness_prog.save(prog_path)
                     except Exception:
                         pass  # unserializable ops: rebuild next start
+            step("setup_procurement")
             pk = load_zkey(os.path.join(setup_dir, "prover_key.zkey"))
             with open(os.path.join(setup_dir, "verification_key.json")) as f:
                 self.vk = json.load(f)
@@ -137,9 +151,12 @@ class ProverServiceState:
                 self.witness_prog = CompiledWitnessProgram(self.cs)
             except Exception:
                 self.witness_prog = None  # no C toolchain: Python witness path
+            step("circuit_build")
             res = groth16_setup(r1cs_from_cs(self.cs), rng=rng)
+            step("setup_procurement")
             self.prover = Groth16Prover(res.pk)
             self.vk = res.vk
+        step("prover_load")
         if self.config.batch_proving:
             from ..parallel.batch_prover import BatchProver
 

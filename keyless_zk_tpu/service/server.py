@@ -141,6 +141,10 @@ def main(argv=None) -> int:
         jwk_fetcher=fetcher,
     )
     if not args.no_prover:
+        from ..utils.compile_cache import enable_compile_cache, set_xla_flags
+
+        set_xla_flags()
+        enable_compile_cache()
         print("initializing prover (native setup)...", file=sys.stderr)
         state.init_prover_from_native_setup(persist=True)
 

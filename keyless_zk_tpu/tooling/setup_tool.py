@@ -59,8 +59,6 @@ def procure(
 
     Pass a prebuilt ConstraintSystem as `cs` to skip the ~2 min circuit
     construction (callers that already built it, e.g. service startup)."""
-    import yaml
-
     from ..circuits.keyless_circuit import KeylessConfig, build_keyless_circuit, to_circuit_config
     from ..circuits.r1cs_file import r1cs_from_cs, save_r1cs
     from ..circuits.setup import groth16_setup
@@ -90,18 +88,21 @@ def procure(
             json.dump(res.vk, f, indent=1)
         cc = to_circuit_config(kc)
         with open(os.path.join(target, "circuit_config.yml"), "w") as f:
-            yaml.safe_dump(
-                {
-                    "max_lengths": cc.max_lengths,
-                    "has_input_skip_aud_checks": cc.has_input_skip_aud_checks,
-                },
-                f,
-            )
+            f.write(_circuit_config_yaml(cc))
         with open(os.path.join(target, "keyless_config.json"), "w") as f:
             json.dump(kc.__dict__, f, indent=1)
     open(marker, "w").close()
     _set_default(root, key)
     return target
+
+
+def _circuit_config_yaml(cc) -> str:
+    """circuit_config.yml text (flat string->int map + one bool), written
+    without a YAML library so setup needs only the standard library."""
+    lines = ["max_lengths:"]
+    lines += [f"  {k}: {int(v)}" for k, v in sorted(cc.max_lengths.items())]
+    lines.append(f"has_input_skip_aud_checks: {str(bool(cc.has_input_skip_aud_checks)).lower()}")
+    return "\n".join(lines) + "\n"
 
 
 def _set_default(root: str, key: str) -> None:

@@ -1,13 +1,12 @@
-"""Time the host-side phases of a full-config prove (no TPU needed).
+"""Time the host-side phases of a full-config prove (no accelerator needed).
 
 The flagship latency budget (groth16.cpp:41-360 is the device part) also
 pays host phases per request: signal derivation (input_signals.rs:18-96),
 witness generation (prover_handler.rs:541-572 — the reference forks a
 compiled main_c), and the constraint re-check. This probe builds the FULL
-KeylessConfig circuit and times each, so the first on-chip session only
-has to debug device phases.
+KeylessConfig circuit and times each.
 
-    KEYLESS_PLATFORM=cpu python scripts/probe_full_host_phases.py
+    JAX_PLATFORMS=cpu python scripts/probe_full_host_phases.py
 """
 
 from __future__ import annotations
@@ -20,8 +19,6 @@ import time
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 sys.path.insert(0, os.path.join(_REPO, "tests"))
-
-os.environ.setdefault("KEYLESS_PLATFORM", "cpu")
 
 
 def main():

@@ -7,7 +7,7 @@ each major gadget's R1CS size localizes regressions: a circuit edit that
 changes a count shows up here naming the gadget, not as an opaque delta in
 the 1.4M-constraint full-circuit total (tests/test_full_scale_circuit.py).
 
-The counts are properties of OUR gadget formulations (a fresh TPU-first
+The counts are properties of OUR gadget formulations (a fresh
 R1CS lowering), so the pinned values are this repo's, not circom's; the
 reference's two published numbers give the scale anchor
 (AssertIsConcatenation at the JWT size: 40,458 @ --O2, keyless.circom:123).

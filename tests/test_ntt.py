@@ -1,4 +1,6 @@
-"""NTT tests: against a naive O(n^2) python DFT and algebraic properties."""
+"""NTT tests: against a naive O(n^2) python DFT, the host radix-2 NTT and
+algebraic properties, on every domain shape class of the radix-128 matmul
+plan: single-pass (n <= 128), 128 x tail, and multi-128-pass."""
 
 import random
 
@@ -8,7 +10,7 @@ import pytest
 from keyless_zk_tpu.fields import bn254
 from keyless_zk_tpu.fields.jax_field import FR
 from keyless_zk_tpu.fields import jax_field as jf
-from keyless_zk_tpu.ops.ntt import get_plan
+from keyless_zk_tpu.ops.ntt import NTTPlan, digit_reverse_perm, factorize, get_plan, host_ntt
 
 R = bn254.R_SCALAR
 rng = random.Random(5)
@@ -77,21 +79,21 @@ def test_batched_ntt():
         assert jf.decode_ints(out[i], FR, mont=True) == naive_ntt(r, w)
 
 
-def _fast_host_ntt(vals, w, p):
-    """Recursive radix-2 host NTT (O(n log n) ints) for larger-size checks."""
-    n = len(vals)
-    if n == 1:
-        return vals[:]
-    even = _fast_host_ntt(vals[0::2], w * w % p, p)
-    odd = _fast_host_ntt(vals[1::2], w * w % p, p)
-    out = [0] * n
-    wk = 1
-    for k in range(n // 2):
-        t = wk * odd[k] % p
-        out[k] = (even[k] + t) % p
-        out[k + n // 2] = (even[k] - t) % p
-        wk = wk * w % p
-    return out
+@pytest.mark.parametrize("domain_pow", [7, 10])
+def test_ntt_matches_host_ntt(domain_pow):
+    """The prover's NTT against the plain host reference, forward and
+    round trip, batched like the prover's (3, n) sweep."""
+    import jax.numpy as jnp
+
+    n = 1 << domain_pow
+    rows = [[rng.randrange(R) for _ in range(n)] for _ in range(3)]
+    w = bn254.fr_root_of_unity(domain_pow)
+    plan = get_plan(domain_pow)
+    x = jnp.stack([jf.encode_ints(r, FR, mont=True) for r in rows])
+    y = plan.ntt(x)
+    for i, r in enumerate(rows):
+        assert jf.decode_ints(y[i], FR, mont=True) == host_ntt(r, w)
+    assert bool(jnp.array_equal(plan.intt(y), x))
 
 
 @pytest.mark.slow
@@ -105,6 +107,58 @@ def test_ntt_matches_fast_host_large(domain_pow):
     plan = get_plan(domain_pow)
     x = jf.encode_ints(vals, FR, mont=True)
     got = jf.decode_ints(plan.ntt(x), FR, mont=True)
-    assert got == _fast_host_ntt(vals, w, R)
+    assert got == host_ntt(vals, w)
     back = jf.decode_ints(plan.intt(plan.ntt(x)), FR, mont=True)
     assert back == vals
+
+
+def test_factorize():
+    assert factorize(1 << 21) == [128, 128, 128]
+    assert factorize(1 << 16) == [128, 128, 4]
+    assert factorize(1 << 7) == [128]
+    assert factorize(1 << 3) == [8]
+
+
+def test_digit_reverse_perm_radix2_is_bit_reverse():
+    import numpy as np
+
+    bits = 6
+    idx = np.arange(1 << bits)
+    rev = sum(((idx >> b) & 1) << (bits - 1 - b) for b in range(bits))
+    assert np.array_equal(digit_reverse_perm([2] * bits), rev)
+
+
+@pytest.mark.parametrize("domain_pow", [2, 7, 8, 10])
+def test_matches_butterfly_ntt(domain_pow):
+    """Forward transform vs the host radix-2 (butterfly) NTT, and the
+    round trip."""
+    n = 1 << domain_pow
+    vals = [rng.randrange(R) for _ in range(n)]
+    x = jf.encode_ints(vals, FR, mont=True)
+    plan = get_plan(domain_pow)
+    got = jf.decode_ints(plan.ntt(x), FR, mont=True)
+    assert got == host_ntt(vals, bn254.fr_root_of_unity(domain_pow))
+    back = jf.decode_ints(plan.intt(plan.ntt(x)), FR, mont=True)
+    assert back == vals
+
+
+def test_batched():
+    plan = get_plan(8)
+    n, b = 256, 3
+    rows = [[rng.randrange(R) for _ in range(n)] for _ in range(b)]
+    import jax.numpy as jnp
+
+    x = jnp.stack([jf.encode_ints(r, FR, mont=True) for r in rows])
+    out = plan.ntt(x)
+    w = bn254.fr_root_of_unity(8)
+    for i, r in enumerate(rows):
+        assert jf.decode_ints(out[i], FR, mont=True) == host_ntt(r, w)
+
+
+@pytest.mark.slow
+def test_matches_butterfly_2_14():
+    """Two full radix-128 passes (the 2^21 shape class, scaled down)."""
+    dp = 14
+    vals = [rng.randrange(R) for _ in range(1 << dp)]
+    got = NTTPlan(dp).ntt(jf.encode_ints(vals, FR, mont=True))
+    assert jf.decode_ints(got, FR, mont=True) == host_ntt(vals, bn254.fr_root_of_unity(dp))

@@ -2,13 +2,12 @@
 
 Real zkeys repeat table points heavily (the full keyless setup's points_a
 has 1,377,553 rows but only 1,194,986 distinct triples; points_b1/b2 only
-796,854 — mostly wires absent from B). Duplicates break the fused MSM
-scan's `assume_distinct` fast path (two equal points adjacent in a bucket
-run hit the skipped P == Q case), so the prover collapses them at load and
-sums the duplicate rows' scalars per proof (groth16/prover.py
-_dedup_point_table/_merge_scalars). These tests pin that algebra, and the
-chunked coefficient-table evaluation's equivalence across chunk sizes
-(groth16.cpp:135-156 is the scatter being replaced).
+796,854 — mostly wires absent from B), so the prover collapses them at
+load and sums the duplicate rows' scalars per proof (groth16/prover.py
+_dedup_point_table/_merge_scalars). These tests pin that algebra, the
+chunked coefficient-table evaluation against host ints and across chunk
+sizes (groth16.cpp:135-156 is the scatter being replaced), and prove()
+end to end on a toy circuit.
 """
 
 import json
@@ -119,6 +118,46 @@ def test_eval_ab_chunk_size_invariance(monkeypatch):
     monkeypatch.setattr(prover_mod, "_COEF_CHUNK", 2)
     chunked = prover_mod.Groth16Prover(pk)._eval_ab(jnp.asarray(w.values))
     assert np.array_equal(np.asarray(base), np.asarray(chunked))
+
+
+def test_prove_verifies_on_toy_circuit(toy_setup):
+    """prove() end to end (merged witness MSMs, scanned coefficient
+    evaluation, NTT sweep, decode, blinding) gives a proof the pairing
+    check accepts."""
+    from keyless_zk_tpu.groth16.pairing import verify_groth16
+
+    cs, res = toy_setup
+    rng = np.random.default_rng(9)
+    inputs = {f"b{k}": int(rng.integers(0, 1 << 62)) for k in range(60)}
+    w = cs.compute_witness(a=12345, **inputs)
+    assert cs.check_witness(w) is None
+    proof = Groth16Prover(res.pk).prove(cs.witness_np(w))
+    assert verify_groth16(res.vk, [12345], proof.to_json_dict())
+
+
+@pytest.mark.parametrize("chunk", [None, 7], ids=["one_chunk", "many_chunks"])
+def test_eval_ab_matches_host_evaluation(chunk, monkeypatch, toy_setup):
+    """The scanned coefficient evaluation equals A.w | B.w over host ints,
+    with the table in one chunk and in many (rows spanning chunk edges)."""
+    import jax.numpy as jnp
+
+    from keyless_zk_tpu.fields import jax_field as jf
+    from keyless_zk_tpu.fields.limbs import ints_to_limbs
+    from keyless_zk_tpu.groth16 import prover as prover_mod
+
+    pk = toy_setup[1].pk
+    if chunk:
+        monkeypatch.setattr(prover_mod, "_COEF_CHUNK", chunk)
+    prover = prover_mod.Groth16Prover(pk)
+    r = bn254.R_SCALAR
+    rng = np.random.default_rng(5)
+    w = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(pk.n_vars)]
+    got = jf.decode_ints(prover._eval_ab(jnp.asarray(ints_to_limbs(w))), jf.FR, mont=True)
+    want = [0] * (2 * pk.domain_size)
+    r_inv2 = pow(1 << 512, -1, r)  # zkey coefficients are stored times R^2
+    for m, c, s, v in zip(pk.coef_m, pk.coef_c, pk.coef_s, limbs_to_ints(pk.coef_val)):
+        want[int(m) * pk.domain_size + int(c)] += v * r_inv2 * w[int(s)]
+    assert got == [x % r for x in want]
 
 
 def _dup_pk_and_split_witness(pk, w, seed=3):

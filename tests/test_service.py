@@ -3,7 +3,7 @@
 Mirrors the reference's endpoint + validation tests
 (prover-service/src/tests/request_handler.rs, prover_handler.rs): routing,
 error mapping, training-wheels validation against a mock JWK issuer, and
-metrics exposition.  The full prove pipeline (setup + witness + TPU prove +
+metrics exposition.  The full prove pipeline (setup + witness + device prove +
 verify + TW sign) runs when KEYLESS_FULL_SERVICE_TEST=1 — it procures a
 native setup first, like the reference's LOCAL_SETUP_PROCURED lazy static
 (tests/types.rs:28-45).
